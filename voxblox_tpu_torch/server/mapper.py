@@ -1,0 +1,364 @@
+"""Mapper services, projective method (port of the online-mapping parts
+of voxblox_tpu/server/mapper.py).
+
+- ``TsdfServer``: posed point clouds -> projective TSDF integration, with
+  the transactional grow-and-retry budget ladder: an overflowed scan
+  applies nothing and is replayed at grown budgets by ``check_overflow``.
+- ``EsdfServer``: adds the incremental ESDF; ``insert_pointcloud_and_
+  update_esdf`` is the online step (integrate + incremental ESDF per
+  scan) with overflow flags kept on the device until ``check_overflow``.
+
+Not ported yet (they raise): ICP, meshing, map IO, distance pruning,
+clear spheres, intensity and the simulation server.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from .. import _runtime
+from ..core import layer as vlayer
+from ..core.config import (
+    EsdfIntegratorConfig,
+    MapConfig,
+    MeshIntegratorConfig,
+    TsdfIntegratorConfig,
+)
+from ..ops import esdf as esdf_ops
+from ..ops import projective as projective_ops
+
+
+def _or(acc, flag):
+    return flag if acc is None else acc | flag
+
+
+class TsdfServer:
+    """Point-cloud -> TSDF mapping service (tsdf_server.cc), projective
+    integration on ``device`` (default CUDA; ``device="cpu"`` for the
+    CPU)."""
+
+    def __init__(
+        self,
+        map_config: MapConfig = MapConfig(),
+        integrator_config: TsdfIntegratorConfig = TsdfIntegratorConfig(),
+        mesh_config: MeshIntegratorConfig = MeshIntegratorConfig(),
+        method: str = "projective",
+        enable_icp: bool = False,
+        icp_config=None,
+        max_block_distance_from_body: float = 0.0,
+        max_points: Optional[int] = None,
+        projective_resolution=(320, 240),
+        projective_fov_deg: float = 90.0,
+        projective_kind: str = "pinhole",
+        projective_intrinsics=None,
+        projective_pool: int = 1,
+        projective_max_visible_blocks: int = 512,
+        projective_max_mixed_slabs: Optional[int] = None,
+        projective_max_free_slabs: Optional[int] = None,
+        overflow_check_interval: int = 1,
+        device=None,
+    ):
+        self.device = _runtime.resolve_device(device)
+        if method != "projective":
+            raise NotImplementedError(
+                f"method {method!r} is not ported; use 'projective'")
+        if enable_icp:
+            raise NotImplementedError("ICP is not ported")
+        if max_block_distance_from_body > 0.0:
+            raise NotImplementedError("distance pruning is not ported")
+        if projective_kind != "pinhole":
+            raise NotImplementedError(
+                f"projective kind {projective_kind!r} is not ported")
+        self.map_config = map_config
+        self.cfg = integrator_config
+        self.mesh_config = mesh_config
+        self.method = method
+        self.projective_resolution = tuple(projective_resolution)
+        self.projective_fov = float(np.deg2rad(projective_fov_deg))
+        self.projective_kind = projective_kind
+        self.projective_intrinsics = (
+            tuple(float(v) for v in projective_intrinsics)
+            if projective_intrinsics is not None else None)
+        self.projective_pool = int(projective_pool)
+        self.projective_budgets = dict(
+            max_visible_blocks=projective_max_visible_blocks,
+            max_mixed_slabs=projective_max_mixed_slabs,
+            max_free_slabs=projective_max_free_slabs,
+        )
+        self.max_points = max_points
+        self.layer = vlayer.make_layer(
+            "tsdf", map_config.voxel_size, vps=map_config.voxels_per_side,
+            max_blocks=map_config.max_blocks,
+            table_capacity=map_config.table_capacity, device=self.device)
+        self.num_scans = 0
+        self.overflow_check_interval = max(1, int(overflow_check_interval))
+        self._overflow_acc = None  # device-side pool-overflow flag
+        # Scans since the last check with their device budget-overflow
+        # flag; flagged ones replay at grown budgets in check_overflow.
+        self._pending_scans: list = []
+
+    # -- input path ------------------------------------------------------
+    def _tensor(self, x):
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def _pose(self, T_G_C):
+        if isinstance(T_G_C, tuple):
+            return self._tensor(T_G_C[0]), self._tensor(T_G_C[1])
+        T = self._tensor(T_G_C)
+        return T[:3, :3], T[:3, 3]
+
+    def _pad(self, points, colors):
+        n = points.shape[0]
+        cap = self.max_points or n
+        if n < cap:
+            z = torch.zeros((cap - n, 3), dtype=torch.float32,
+                            device=self.device)
+            points, colors = torch.cat([points, z]), torch.cat([colors, z])
+        elif n > cap:
+            points, colors = points[:cap], colors[:cap]
+        return points, colors
+
+    def _integrate(self, T_G_C, points_C, colors):
+        return projective_ops.integrate_pointcloud_projective(
+            self.layer, T_G_C, points_C, colors, self.cfg,
+            resolution=self.projective_resolution,
+            fov_h_rad=self.projective_fov, kind=self.projective_kind,
+            **self.projective_budgets)
+
+    def insert_pointcloud(self, T_G_C, points_C, colors=None):
+        """Integrate one posed flat scan. Returns the pose used."""
+        points_C = self._tensor(points_C)
+        colors = (torch.zeros_like(points_C) if colors is None
+                  else self._tensor(colors))
+        points_C, colors = self._pad(points_C, colors)
+        T_G_C = self._pose(T_G_C)
+        self.layer, overflow, budget_ovf = self._integrate(
+            T_G_C, points_C, colors)
+        self._record_scan(T_G_C, points_C, colors, budget_ovf)
+        self._overflow_acc = _or(self._overflow_acc, overflow)
+        if (self.num_scans + 1) % self.overflow_check_interval == 0:
+            self.check_overflow()
+        self.num_scans += 1
+        return T_G_C
+
+    # -- projective grow-and-retry ---------------------------------------
+    def _record_scan(self, T_G_C, points_C, colors, budget_ovf,
+                     fused: bool = False):
+        self._pending_scans.append((T_G_C, points_C, colors, budget_ovf,
+                                    fused))
+
+    def _grow_projective_budgets(self) -> bool:
+        """Advance the budgets one ladder rung: slab budgets first (double,
+        then None = unbounded once they cover every visible slab), the
+        visible-row budget only after. False when all are at maximum."""
+        b = self.projective_budgets
+        n_slabs = projective_ops._slab_shape(self.layer.vps)[2]
+        changed = False
+        for key in ("max_mixed_slabs", "max_free_slabs"):
+            v = b[key]
+            if v is not None:
+                cap = b["max_visible_blocks"] * n_slabs
+                b[key] = None if 2 * v >= cap else 2 * v
+                changed = True
+        if not changed:
+            mvb = b["max_visible_blocks"]
+            if mvb < self.layer.max_blocks:
+                b["max_visible_blocks"] = min(2 * mvb, self.layer.max_blocks)
+                changed = True
+        return changed
+
+    def _replay_scan(self, T_G_C, points_C, colors, fused: bool):
+        """Re-dispatch one budget-overflowed scan until it applies, first
+        at the current budgets, then growing a rung per fresh overflow."""
+        first = True
+        while True:
+            if not first and not self._grow_projective_budgets():
+                raise MemoryError(
+                    "projective scan overflows even at the maximum "
+                    "budgets; increase MapConfig.max_blocks")
+            first = False
+            if fused:
+                self._fused_step(T_G_C, points_C, colors, record=False)
+                pool_b, budget_b = _runtime.host_bools(
+                    [self._overflow_acc, self._last_fused_budget])
+            else:
+                self.layer, pool_ovf, budget_ovf = self._integrate(
+                    T_G_C, points_C, colors)
+                pool_b, budget_b = _runtime.host_bools([pool_ovf, budget_ovf])
+            if pool_b:
+                raise MemoryError(
+                    "block pool overflow; increase MapConfig.max_blocks")
+            if not budget_b:
+                return
+
+    def _drain_pending_scans(self):
+        if not self._pending_scans:
+            return
+        pending, self._pending_scans = self._pending_scans, []
+        flags = _runtime.host_bools([r[3] for r in pending])
+        for (T, pts, cols, _, fused), ovf in zip(pending, flags):
+            if ovf:
+                self._replay_scan(T, pts, cols, fused)
+
+    def check_overflow(self):
+        """Resolve deferred overflow flags: budget overflows replay their
+        scans; pool overflow raises."""
+        self._drain_pending_scans()
+        if self._overflow_acc is None:
+            return
+        (ovf,) = _runtime.host_bools([self._overflow_acc])
+        self._overflow_acc = None
+        if ovf:
+            raise MemoryError(
+                "block pool overflow; increase MapConfig.max_blocks")
+
+    # -- services not ported yet ------------------------------------------
+    def update_mesh(self):
+        raise NotImplementedError("incremental meshing is not ported yet")
+
+    def generate_mesh(self, path: Optional[str] = None):
+        raise NotImplementedError("meshing is not ported yet")
+
+    def save_map(self, path: str):
+        raise NotImplementedError("map IO is not ported yet")
+
+    def load_map(self, path: str):
+        raise NotImplementedError("map IO is not ported yet")
+
+
+class EsdfServer(TsdfServer):
+    """TsdfServer + incremental ESDF (esdf_server.{h,cc}).
+
+    ``relax_impl`` selects the ESDF relaxation: "kernel" (K1 on a CUDA
+    device, its plain version on the CPU) or "plain" (the plain PyTorch
+    version on any device — the reference the kernel is held against)."""
+
+    def __init__(
+        self,
+        map_config: MapConfig = MapConfig(),
+        integrator_config: TsdfIntegratorConfig = TsdfIntegratorConfig(),
+        esdf_config: EsdfIntegratorConfig = EsdfIntegratorConfig(),
+        clear_sphere_for_planning: bool = False,
+        relax_impl: str = "kernel",
+        **kw,
+    ):
+        super().__init__(map_config, integrator_config, **kw)
+        if clear_sphere_for_planning:
+            raise NotImplementedError("clear spheres are not ported")
+        if relax_impl not in ("kernel", "plain"):
+            raise ValueError(f"relax_impl must be 'kernel' or 'plain', "
+                             f"not {relax_impl!r}")
+        esdf_ops._check_cfg(esdf_config)
+        self.esdf_cfg = esdf_config
+        self.relax_impl = relax_impl
+        self._esdf_region_ovf = None
+        self._esdf_pool_ovf = None
+        self._last_fused_budget = None
+        self.esdf_layer = vlayer.make_layer(
+            "esdf", map_config.voxel_size, vps=map_config.voxels_per_side,
+            max_blocks=map_config.max_blocks, device=self.device)
+
+    def insert_pointcloud_and_update_esdf(self, T_G_C, points_C,
+                                          colors=None):
+        """Online step: projective integrate + incremental ESDF for one
+        scan. An organized [H, W, 3] cloud with ``projective_intrinsics``
+        set bins by min-pooling; flat clouds by scatter-min. Overflow flags
+        stay on the device until ``check_overflow``. Returns the outer
+        sweep iterations."""
+        points_C = self._tensor(points_C)
+        colors = (torch.zeros_like(points_C) if colors is None
+                  else self._tensor(colors))
+        organized = (points_C.dim() == 3
+                     and self.projective_intrinsics is not None)
+        if not organized:
+            points_C, colors = self._pad(points_C, colors)
+        T_G_C = self._pose(T_G_C)
+        iters = self._fused_step(T_G_C, points_C, colors)
+        self.num_scans += 1
+        if self.num_scans % self.overflow_check_interval == 0:
+            self.check_overflow()
+        return iters
+
+    def _fused_step(self, T_G_C, points_C, colors, record: bool = True):
+        """Integrate + deferred incremental ESDF, with device-side overflow
+        accounting; ``record`` keeps the scan for the grow-and-retry
+        drain (an overflowed scan applied no TSDF update and set no dirty
+        bits, so replaying the whole step is exact)."""
+        run_cfg = esdf_ops._bucketed_cfg(self.esdf_cfg, self.esdf_layer,
+                                         self.layer)
+        b = self.projective_budgets
+        # Named spans for torch.profiler (host and device time per stage).
+        with record_function("projective_integrate"):
+            if (points_C.dim() == 3
+                    and self.projective_intrinsics is not None):
+                self.layer, t_ovf, t_budget = (
+                    projective_ops.integrate_organized_projective(
+                        self.layer, T_G_C, points_C, colors, self.cfg,
+                        intrinsics=self.projective_intrinsics,
+                        pool=self.projective_pool, **b))
+            else:
+                self.layer, t_ovf, t_budget = self._integrate(
+                    T_G_C, points_C, colors)
+        with record_function("esdf_incremental"):
+            (self.esdf_layer, self.layer, e_ovf, region_ovf,
+             iters) = esdf_ops._incremental(self.esdf_layer, self.layer,
+                                            run_cfg, self.relax_impl)
+        self._overflow_acc = _or(self._overflow_acc, t_ovf)
+        self._last_fused_budget = t_budget
+        self._esdf_pool_ovf = _or(self._esdf_pool_ovf, e_ovf)
+        self._esdf_region_ovf = _or(self._esdf_region_ovf, region_ovf)
+        if record:
+            self._record_scan(T_G_C, points_C, colors, t_budget, fused=True)
+        return iters
+
+    def update_esdf(self):
+        """Incremental ESDF update; deferred (flags on the device) when
+        ``overflow_check_interval > 1``. Returns the outer iterations."""
+        if self.overflow_check_interval > 1:
+            (self.esdf_layer, self.layer, overflow, region_ovf,
+             iters) = esdf_ops.update_from_tsdf_incremental_deferred(
+                self.esdf_layer, self.layer, self.esdf_cfg, self.relax_impl)
+            self._esdf_pool_ovf = _or(self._esdf_pool_ovf, overflow)
+            self._esdf_region_ovf = _or(self._esdf_region_ovf, region_ovf)
+            return iters
+        self.esdf_layer, self.layer, overflow, iters = (
+            esdf_ops.update_from_tsdf_incremental(
+                self.esdf_layer, self.layer, self.esdf_cfg, self.relax_impl))
+        if _runtime.host_bool(overflow):
+            raise MemoryError("ESDF pool overflow")
+        return iters
+
+    def check_overflow(self):
+        self._drain_pending_scans()
+        names = [n for n in ("_overflow_acc", "_esdf_pool_ovf",
+                             "_esdf_region_ovf")
+                 if getattr(self, n) is not None]
+        if not names:
+            return
+        vals = dict(zip(names, _runtime.host_bools(
+            [getattr(self, n) for n in names])))
+        self._overflow_acc = None
+        self._esdf_pool_ovf = None
+        self._esdf_region_ovf = None
+        if vals.get("_overflow_acc"):
+            raise MemoryError(
+                "block pool overflow; increase MapConfig.max_blocks")
+        if vals.get("_esdf_pool_ovf"):
+            raise MemoryError(
+                "ESDF pool overflow; increase MapConfig.max_blocks")
+        if vals.get("_esdf_region_ovf"):
+            # Some rows went unseeded/unswept with their dirty bits gone:
+            # grow the bucket and rebuild the exact field.
+            esdf_ops.grow_bucket_cache(self.esdf_cfg, self.esdf_layer)
+            self.update_esdf_batch()
+
+    def update_esdf_batch(self):
+        self.esdf_layer, overflow, iters = esdf_ops.update_from_tsdf_batch(
+            self.esdf_layer, self.layer, self.esdf_cfg, self.relax_impl)
+        if _runtime.host_bool(overflow):
+            raise MemoryError("ESDF pool overflow")
+        return iters
