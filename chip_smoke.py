@@ -1,20 +1,36 @@
-"""GPU smoke run of the PyTorch/CUDA port: builds the hand-written kernel,
-holds it to its plain version, and drives the online mapping step
-(organized scan -> projective TSDF -> incremental ESDF) at the full size
-of bench.py's online-loop configuration on one CUDA card.
+"""GPU smoke run of the PyTorch/CUDA port: builds the hand-written kernels,
+holds each to its plain version, and drives three paths on one CUDA card
+at the full size of the JAX package's own benchmarks: the online mapping
+step at 5 cm (bench.py's online loop), the batch ESDF rebuild with the
+unit and the strided schedule (bench.py's ESDF section), and the 2 cm
+stress loop with a mesh update every scan (benchmarks/stress_bench.py).
 
-    python3 chip_smoke.py             # the check (one card, ~1-2 min)
-    python3 chip_smoke.py --profile   # + a torch.profiler window
+    python3 chip_smoke.py             # the check (one card, a few minutes)
+    python3 chip_smoke.py --profile   # + torch.profiler windows
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1 device   nvidia-smi name/power limit, refuse without a GPU
-  2 build    nvcc the kernel from voxblox_tpu_torch/csrc/
+  2 build    nvcc the kernels from voxblox_tpu_torch/csrc/
   3 main     warm a 32-pose orbit, then time 12 online steps with the
              kernel counters zeroed just before and read just after
-  4 kernel   K1 against its plain version at the main path's working-set
-             size (expect bit-equal), timed with CUDA events
+  4 kernel   K1 against its plain version at the shape and constants of
+             each path that launches it: the online loop's bucket, the
+             unit batch rebuild's bucket where it differs (both 5 cm,
+             max distance 2 m), and the stress loop's whole pool (6144
+             blocks, 2 cm, max distance 1 m); expect bit-equal, timed
+             with CUDA events
   5 replay   the same scans with the plain relaxation (relax_impl="plain"):
              TSDF identical, ESDF equal on observed voxels
+  6 batch    batch ESDF rebuild of the phase-3 map, unit and strided
+             schedule (counters zeroed before each, read after), the two
+             fixpoints compared, both rebuilds replayed with the plain
+             relaxation, the stride-gate statistics
+  7 kernel   K2 against its plain version at the batch rebuild's bucket
+  8 stress   2 cm, 6144-block pool: warm circle with undersized budgets,
+             8 steps with mesh updates, 16 timed steps of integrate +
+             incremental ESDF + mesh update; the exported mesh against
+             the analytic surface; a batch ESDF rebuild of the 2 cm map
+             over the whole pool, kernel against plain relaxation
 Prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -38,8 +54,11 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from voxblox_tpu_torch import _runtime  # noqa: E402
+from voxblox_tpu_torch.core import layer as vlayer  # noqa: E402
 from voxblox_tpu_torch.core.config import (  # noqa: E402
-    EsdfIntegratorConfig, MapConfig, TsdfIntegratorConfig)
+    EsdfIntegratorConfig, MapConfig, MeshIntegratorConfig,
+    TsdfIntegratorConfig)
+from voxblox_tpu_torch.ops import mesh as mesh_ops  # noqa: E402
 from voxblox_tpu_torch.ops import esdf as esdf_ops  # noqa: E402
 from voxblox_tpu_torch.ops import esdf_relax  # noqa: E402
 from voxblox_tpu_torch.server.mapper import EsdfServer  # noqa: E402
@@ -55,7 +74,39 @@ VIRT = (320, 240)
 VOXEL = 0.05
 FOV_DEG = 60.0
 N_POSES = 32
+MAX_BLOCKS = 4096
+MIN_OBSERVED = 100_000  # observed ESDF voxels a full-size map must have
 TIMED = 12  # online steps in the timed window
+# bench.py's batch-ESDF schedule (bench.py:269-274).
+STRIDES = (8, 4, 2, 1, 1, 1, 1)
+# benchmarks/stress_bench.py (:29-87).
+STRESS_VOXEL = 0.02
+STRESS_BLOCKS = 6144
+STRESS_TIMED = 16
+# Undersized on purpose: the grow-and-retry ladder must adapt.
+STRESS_BUDGETS = dict(projective_max_visible_blocks=512,
+                      projective_max_mixed_slabs=4096,
+                      projective_max_free_slabs=512)
+STRESS_MIN_BLOCKS = 4000
+STRESS_MIN_VERTS = 100_000
+MIN_DIFF = EsdfIntegratorConfig().min_diff_m  # what every path passes
+
+# Operations the relaxation needs (the count behind the kernels' bounds;
+# derivation in the notes of voxblox_tpu_torch/csrc/esdf_relax.cu). A unit
+# sweep of one block: packing each padded voxel once as a source, four
+# running extrema per interior voxel and neighbour, the per-voxel group
+# finish. A strided sweep beyond the packing: per interior voxel the gate
+# test, per gated voxel and in-block neighbour one side's window test and
+# minimum, per gated voxel the finish.
+P = esdf_relax.P
+OPS_PACK = 10
+OPS_NEIGHBOUR = 4
+OPS_FINISH = 49
+OPS_PER_BLOCK_SWEEP = (P ** 3 * OPS_PACK
+                       + (P - 2) ** 3 * (26 * OPS_NEIGHBOUR + OPS_FINISH))
+OPS_GATE = 3
+OPS_STRIDED_NEIGHBOUR = 4
+OPS_STRIDED_FINISH = 11
 
 
 def log(*a):
@@ -104,7 +155,7 @@ def make_server(dev, intr, relax_impl):
     # Each server replays the same bucket history from scratch.
     esdf_ops._BUCKET_CACHE.clear()
     return EsdfServer(
-        map_config=MapConfig(voxel_size=VOXEL, max_blocks=4096),
+        map_config=MapConfig(voxel_size=VOXEL, max_blocks=MAX_BLOCKS),
         integrator_config=TsdfIntegratorConfig(
             default_truncation_distance=4 * VOXEL, max_ray_length_m=5.0),
         esdf_config=ecfg, projective_resolution=VIRT,
@@ -146,23 +197,22 @@ def run_loop(srv, scans, on_window_start=None):
                 host_syncs_per_scan=syncs / TIMED, blocks=n_blocks)
 
 
-def profile_window(srv, scans, n=4):
-    """torch.profiler over ``n`` online steps; per-scan device busy time,
-    the busy share of the traced window, kernel time inside the
-    projective_integrate / esdf_incremental spans, K1's time, kernel
-    launches and stream synchronizations (from the exported trace)."""
+def profile_window(srv, step, path, n=4):
+    """torch.profiler over ``n`` calls of ``step(i)``; per-scan device busy
+    time, the busy share of the traced window, kernel time inside the
+    projective_integrate / esdf_incremental / mesh_update spans, K1's
+    time, kernel launches and stream synchronizations (from the exported
+    trace, written to ``path``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  with_stack=True) as prof:
         for i in range(n):
-            s = scans[(16 + i) % len(scans)]
-            srv.insert_pointcloud_and_update_esdf(s[:2], *s[2:])
+            step(i)
         torch.cuda.synchronize()
     srv.check_overflow()
     os.makedirs("chiprun_out", exist_ok=True)
-    path = "chiprun_out/online_trace.json"
     prof.export_chrome_trace(path)
     with open(path) as f:
         ev = json.load(f)["traceEvents"]
@@ -191,6 +241,10 @@ def profile_window(srv, scans, n=4):
         key = key.split("voxblox_tpu_torch/")[-1]
         sites[key] = sites.get(key, 0) + 1
     k1 = sum(e["dur"] for e in kern if e["name"].startswith("esdf_relax_k1"))
+    by_name = {}  # kernel time by (shortened) name
+    for e in kern:
+        by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return dict(
         scans=n, device_busy_ms_per_scan=busy / n / 1e3,
         traced_span_ms_per_scan=(t1 - t0) / n / 1e3,
@@ -203,12 +257,163 @@ def profile_window(srv, scans, n=4):
         sync_sites_per_scan={k: v / n for k, v in sorted(
             sites.items(), key=lambda kv: -kv[1])},
         memcpy_per_scan=sum(1 for e in ev if e.get("cat") == "gpu_memcpy")
-        / n)
+        / n,
+        top_kernels_ms_per_scan={k: v / n / 1e3 for k, v in top})
 
 
-def random_relax_inputs(n, seed, dev):
+def structured_relax_inputs(n, seed, dev, strides):
+    """K2 inputs: values as ``random_relax_inputs`` makes them, but with
+    traversable regions large enough for jumps at every level. Four blocks
+    in ten are open and of one sign; the rest follow a random plane (a
+    band around it may not update) and have four unobserved 2^3 boxes.
+    Codes come from the port's own erosion (standalone: zero ring)."""
+    g = torch.Generator(device="cpu").manual_seed(1000 + seed)
+    mag = torch.rand((n, 18, 18, 18), generator=g) * 2.5
+    ax = torch.arange(18, dtype=torch.float32)
+    zz, yy, xx = torch.meshgrid(ax, ax, ax, indexing="ij")
+    nrm = torch.nn.functional.normalize(
+        torch.randn((n, 3), generator=g), dim=1)
+    off = torch.rand(n, generator=g) * 11.0 + 3.0
+    s = (xx[None] * nrm[:, 0, None, None, None]
+         + yy[None] * nrm[:, 1, None, None, None]
+         + zz[None] * nrm[:, 2, None, None, None]
+         - (off * nrm.sum(1))[:, None, None, None])
+    open_blk = (torch.rand(n, generator=g) < 0.4)[:, None, None, None]
+    side = torch.where(torch.rand(n, generator=g) < 0.5, 5.0, -5.0)
+    s = torch.where(open_blk, side[:, None, None, None], s)
+    d = torch.where(s > 0, mag, -mag)
+    corner = torch.randint(0, 16, (n, 4, 3), generator=g)
+    inside = torch.ones((n, 4, 18, 18, 18), dtype=torch.bool)
+    for a, grid in enumerate((zz, yy, xx)):
+        c = corner[:, :, a, None, None, None].float()
+        inside &= (grid[None, None] >= c) & (grid[None, None] < c + 2)
+    obs = ~(inside.any(1) & ~open_blk)
+    upd = torch.zeros(d.shape, dtype=torch.bool)
+    u = obs & (s.abs() > 1.0)
+    upd[:, 1:-1, 1:-1, 1:-1] = u[:, 1:-1, 1:-1, 1:-1]
+    act = torch.rand(n, generator=g) < 0.5
+    d, obs, upd, act = (x.to(dev).contiguous() for x in (d, obs, upd, act))
+    codes = esdf_ops.stride_codes_standalone(d, upd, strides)
+    return d, obs, upd, act, codes
+
+
+def relax_ops_needed(upd, active, schedule, codes=None, d=None):
+    """Operations ``relax`` needs for these inputs and this schedule (a
+    tuple of strides). A unit sweep costs ``OPS_PER_BLOCK_SWEEP`` per
+    active block. A strided sweep costs the packing, one gate test per
+    interior voxel and, for voxels that may update and whose own sign's
+    gate is open, the window test and minimum per neighbour that lies
+    inside the padded cube plus the finish."""
+    levels = esdf_relax._levels(schedule)
+    n_act = int(active.sum())
+    v = P - 2
+    total = 0
+    ax = torch.arange(1, v + 1, device=upd.device)
+    for k in schedule:
+        if k == 1:
+            total += n_act * OPS_PER_BLOCK_SWEEP
+            continue
+        own = torch.where(d > 0.0, codes[0], codes[1])
+        gated = (upd & (own >= levels[k])
+                 & active.view(-1, 1, 1, 1))[:, 1:-1, 1:-1, 1:-1]
+        per_cell = torch.zeros((v, v, v), dtype=torch.int64,
+                               device=upd.device)
+        for dx, dy, dz in esdf_relax._OFFSETS:
+            ok = [((ax + k * o >= 0) & (ax + k * o <= P - 1))
+                  for o in (dz, dy, dx)]
+            per_cell += (ok[0][:, None, None] & ok[1][None, :, None]
+                         & ok[2][None, None, :])
+        nbrs = int((gated * per_cell[None]).sum())
+        total += (n_act * (P ** 3 * OPS_PACK + v ** 3 * OPS_GATE)
+                  + nbrs * OPS_STRIDED_NEIGHBOUR
+                  + int(gated.sum()) * OPS_STRIDED_FINISH)
+    return total
+
+
+def kernel_phase(name, inputs, run_kernel, run_plain, ops_of, bytes_of,
+                 extra):
+    """One kernel against its plain version on ``inputs`` (expect
+    bit-equal), both timed with CUDA events, and its bound from the
+    operations and bytes these inputs need."""
+    max_err = 0.0
+    for x in inputs:
+        got = run_kernel(x)
+        ref = run_plain(x)
+        torch.cuda.synchronize()
+        max_err = max(max_err, float((got - ref).abs().max()))
+        assert torch.isfinite(got).all()
+    assert max_err == 0.0, f"{name} differs from its plain version: {max_err}"
+    ms, k_times = _cuda_ms(run_kernel, inputs)
+    plain_ms, p_times = _cuda_ms(run_plain, inputs)
+    ops = statistics.median(ops_of(x) for x in inputs)
+    nbytes = statistics.median(bytes_of(x) for x in inputs)
+    bound_ms = max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3
+    bound_by = "operations" if ops / PEAK_F32 > nbytes / PEAK_BYTES else (
+        "bytes")
+    kern = dict(extra, tolerance="exact (bit-equal)", ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                ops=ops, bytes=nbytes, kernel_times_ms=k_times,
+                plain_times_ms=p_times, max_abs_err=max_err)
+    log(f"{name}: " + json.dumps(kern))
+    return kern
+
+
+def k1_phase(n, dev, voxel, max_distance, path):
+    """K1 at ``n`` padded blocks, 4 unit sweeps, with the voxel size and
+    max distance of ``path`` (the step constants and the source window
+    follow from them), random inputs spanning 1.25 x the window."""
+    inputs = [random_relax_inputs(n, seed, dev, max_distance / 2.0)
+              for seed in range(7)]
+    act = statistics.median(int(x[3].sum()) for x in inputs)
+    # Work the inputs need (note in csrc/esdf_relax.cu): every active
+    # block's sweeps; d read and the new output written for all n blocks,
+    # obs and upd read for active blocks only.
+    return kernel_phase(
+        f"kernel K1 ({path})", inputs,
+        lambda x: esdf_relax.relax(*x, 4, voxel, max_distance, MIN_DIFF),
+        lambda x: esdf_relax.relax_plain(*x, 4, voxel, max_distance,
+                                         MIN_DIFF),
+        lambda x: relax_ops_needed(x[2], x[3], (1,) * 4),
+        lambda x: (n * 18 ** 3 * (4 + 4)
+                   + int(x[3].sum()) * 18 ** 3 * (1 + 1) + n),
+        dict(path=path, n_blocks=n, active_blocks=act, inner_sweeps=4,
+             voxel_size=voxel, max_distance=max_distance))
+
+
+def k2_phase(n, dev):
+    """K2 at ``n`` padded blocks with the batch rebuild's schedule."""
+    inputs = [structured_relax_inputs(n, seed, dev, STRIDES)
+              for seed in range(7)]
+    act = statistics.median(int(x[3].sum()) for x in inputs)
+    code = torch.maximum(*inputs[0][4])
+    admitted = [int((code >= lvl).sum()) for lvl in (1, 2, 3)]
+    assert all(a > 0 for a in admitted), admitted
+
+    def kernel(x):
+        return esdf_relax.relax(*x[:4], 4, VOXEL, 2.0, MIN_DIFF,
+                                strides=STRIDES, codes=x[4])
+
+    def plain(x):
+        return esdf_relax.relax_plain(*x[:4], 4, VOXEL, 2.0, MIN_DIFF,
+                                      strides=STRIDES, codes=x[4])
+
+    before = esdf_relax.STRIDED_LAUNCHES
+    kern = kernel_phase(
+        "kernel K2", inputs, kernel, plain,
+        lambda x: relax_ops_needed(x[2], x[3], STRIDES, x[4], x[0]),
+        # d read and the output written for all n blocks; obs, upd and the
+        # two code cubes read for active blocks.
+        lambda x: (n * 18 ** 3 * (4 + 4)
+                   + int(x[3].sum()) * 18 ** 3 * 4 + n),
+        dict(n_blocks=n, active_blocks=act, strides=list(STRIDES),
+             admitted_voxels_per_level=admitted))
+    assert esdf_relax.STRIDED_LAUNCHES == before + 14
+    return kern
+
+
+def random_relax_inputs(n, seed, dev, scale=1.0):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    d = (torch.rand((n, 18, 18, 18), generator=g) * 5.0 - 2.5)
+    d = (torch.rand((n, 18, 18, 18), generator=g) * 5.0 - 2.5) * scale
     obs = torch.rand(d.shape, generator=g) < 0.8
     upd = torch.zeros(d.shape, dtype=torch.bool)
     upd[:, 1:-1, 1:-1, 1:-1] = torch.rand((n, 16, 16, 16), generator=g) < 0.7
@@ -216,12 +421,292 @@ def random_relax_inputs(n, seed, dev):
     return tuple(x.to(dev).contiguous() for x in (d, obs, upd, act))
 
 
+def reset_counts():
+    esdf_relax.LAUNCHES = 0
+    esdf_relax.STRIDED_LAUNCHES = 0
+
+
+def batch_phase(tsdf_layer, dev):
+    """bench.py's batch-ESDF section on the map the online loop built:
+    ``update_from_tsdf_batch_deferred`` with the unit and the strided
+    schedule, perturbed TSDF inputs per call, groups of 4 chained calls
+    with one sync, median of 3 groups."""
+    import dataclasses
+
+    base = dict(max_distance_m=2.0, default_distance_m=2.0,
+                min_distance_m=2 * VOXEL, max_active_blocks=1024,
+                use_pallas_kernel=True, inner_sweeps=4)
+    cfg_unit = EsdfIntegratorConfig(**base)
+    cfg_strided = EsdfIntegratorConfig(**base, sweep_strides=STRIDES)
+
+    def perturbed(i):
+        ch = dict(tsdf_layer.channels)
+        ch["tsdf"] = ch["tsdf"] + np.float32(1e-6 * i)
+        return dataclasses.replace(tsdf_layer, channels=ch)
+
+    layers = [perturbed(i) for i in range(8)]
+    # The online server shares the bucket cache's key: put its entry back.
+    saved_buckets = dict(esdf_ops._BUCKET_CACHE)
+    G, N = 4, 3
+    last = layers[1 + (G * (N - 1) + G - 1) % (len(layers) - 1)]
+
+    def fresh():
+        return vlayer.make_layer("esdf", VOXEL, vps=16,
+                                 max_blocks=MAX_BLOCKS, device=dev)
+
+    def run(cfg):
+        esdf_ops._BUCKET_CACHE.clear()
+        e2, _, _, _ = esdf_ops.update_from_tsdf_batch_deferred(
+            fresh(), layers[0], cfg)
+        torch.cuda.synchronize()
+        reset_counts()
+        syncs0 = _runtime.SYNCS
+        times, flags, iters = [], [], []
+        for i in range(N):
+            t0 = time.perf_counter()
+            for g in range(G):
+                e2, ovf, r_ovf, it = (
+                    esdf_ops.update_from_tsdf_batch_deferred(
+                        e2, layers[1 + (G * i + g) % (len(layers) - 1)],
+                        cfg))
+                flags += [ovf, r_ovf]
+                iters.append(it)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / G)
+        launches = esdf_relax.LAUNCHES
+        strided = esdf_relax.STRIDED_LAUNCHES
+        syncs = (_runtime.SYNCS - syncs0) / (G * N)
+        assert not any(_runtime.host_bools(flags)), "batch ESDF overflowed"
+        return e2, dict(ms=statistics.median(times), group_ms=times,
+                        outer_iters=iters[-1], launches=launches,
+                        strided_launches=strided,
+                        launches_per_rebuild=launches / (G * N),
+                        host_syncs_per_rebuild=syncs,
+                        bucket=esdf_ops._BUCKET_CACHE.get((MAX_BLOCKS, 16, 1024),
+                                                       MAX_BLOCKS))
+
+    e_unit, unit = run(cfg_unit)
+    e_str, strided = run(cfg_strided)
+    assert unit["launches"] > 0 and unit["strided_launches"] == 0, unit
+    assert strided["strided_launches"] > 0, "the strided rebuild never " \
+        "launched K2"
+    assert strided["strided_launches"] == strided["launches"], strided
+
+    # The two schedules' fixpoints, at the tolerance the JAX suite accepts
+    # between its own schedules (rmse < 5e-3 over observed voxels).
+    fl_u = e_unit.channels["esdf_flags"]
+    fl_s = e_str.channels["esdf_flags"]
+    assert torch.equal(fl_u, fl_s)
+    obs = (fl_s & 1) != 0
+    n_obs = int(obs.sum())
+    assert n_obs > MIN_OBSERVED, n_obs
+    diff = (e_str.channels["esdf"] - e_unit.channels["esdf"])[obs]
+    rmse = float(diff.pow(2).mean().sqrt())
+    assert torch.isfinite(e_str.channels["esdf"]).all()
+    assert rmse < 5e-3, rmse
+
+    # Both rebuilds again with the plain relaxation, asked by name.
+    def plain_replay(cfg, e_kern, iters):
+        before = esdf_relax.LAUNCHES
+        e_plain, ovf, r_ovf, it_p = esdf_ops.update_from_tsdf_batch_deferred(
+            fresh(), last, cfg, relax_impl="plain")
+        assert esdf_relax.LAUNCHES == before, "plain replay launched a kernel"
+        assert not any(_runtime.host_bools([ovf, r_ovf]))
+        assert it_p == iters, (it_p, iters)
+        assert torch.equal(e_plain.channels["esdf_flags"],
+                           e_kern.channels["esdf_flags"])
+        assert torch.equal(e_plain.block_flags, e_kern.block_flags)
+        err = float((e_plain.channels["esdf"]
+                     - e_kern.channels["esdf"])[obs].abs().max())
+        assert err <= 1e-5, err
+        return err
+
+    replay_err = plain_replay(cfg_strided, e_str, strided["outer_iters"])
+    unit_replay_err = plain_replay(cfg_unit, e_unit, unit["outer_iters"])
+    gate = esdf_ops.stride_gate_stats(e_str, cfg_strided)
+    esdf_ops._BUCKET_CACHE.clear()
+    esdf_ops._BUCKET_CACHE.update(saved_buckets)
+    res = dict(unit=unit, strided=strided, observed_voxels=n_obs,
+               strided_vs_unit_rmse=rmse,
+               strided_vs_unit_max_abs=float(diff.abs().max()),
+               plain_replay_max_abs_err=replay_err,
+               unit_plain_replay_max_abs_err=unit_replay_err,
+               stride_gate=gate)
+    log("batch esdf: " + json.dumps(res))
+    return res
+
+
+def make_stress_server(dev, intr):
+    """benchmarks/stress_bench.py's server (:61-87): 2 cm, projective
+    budgets undersized on purpose so the grow-and-retry ladder adapts."""
+    ecfg = EsdfIntegratorConfig(
+        max_distance_m=1.0, default_distance_m=1.0,
+        min_distance_m=2 * STRESS_VOXEL, max_active_blocks=STRESS_BLOCKS,
+        use_pallas_kernel=True, inner_sweeps=4,
+        max_outer_sweeps_incremental=1)
+    esdf_ops._BUCKET_CACHE.clear()
+    return EsdfServer(
+        map_config=MapConfig(voxel_size=STRESS_VOXEL,
+                             max_blocks=STRESS_BLOCKS, table_capacity=32768),
+        integrator_config=TsdfIntegratorConfig(
+            default_truncation_distance=4 * STRESS_VOXEL,
+            max_ray_length_m=8.0),
+        esdf_config=ecfg,
+        mesh_config=MeshIntegratorConfig(march_cube_budget=16384,
+                                         update_bucket=192),
+        projective_resolution=VIRT, projective_fov_deg=FOV_DEG,
+        projective_intrinsics=intr, projective_pool=RES[0] // VIRT[0],
+        overflow_check_interval=8, device=dev, **STRESS_BUDGETS)
+
+
+def surface_error(v):
+    """Distance of points [N,3] to the scene's surface: the capped
+    cylinder (radius 2 m, z in [0, 4]) or the ground plane z = 0."""
+    dr = np.hypot(v[:, 0], v[:, 1]) - 2.0
+    dz = np.abs(v[:, 2] - 2.0) - 2.0
+    cyl = (np.hypot(np.maximum(dr, 0), np.maximum(dz, 0))
+           + np.minimum(np.maximum(dr, dz), 0))
+    return np.minimum(np.abs(cyl), np.abs(v[:, 2]))
+
+
+def stress_step(srv, scan):
+    srv.insert_pointcloud_and_update_esdf(scan[:2], *scan[2:])
+    srv.update_mesh()
+
+
+def stress_phase(scans, intr, dev, profile):
+    """benchmarks/stress_bench.py's loop (:89-117) and a check of the mesh
+    it leaves."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    srv = make_stress_server(dev, intr)
+    budgets0 = dict(srv.projective_budgets)
+    t0 = time.perf_counter()
+    blocks_at = {}
+    for i, s in enumerate(scans):
+        srv.insert_pointcloud_and_update_esdf(s[:2], *s[2:])
+        if i + 1 in (8, 16):  # just after a deferred overflow check
+            blocks_at[i + 1] = int(srv.layer.num_blocks)
+    srv.check_overflow()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    esdf_ops.presize_bucket(srv.esdf_cfg, srv.esdf_layer,
+                            int(srv.layer.num_blocks) + 64)
+    for s in scans[:8]:
+        stress_step(srv, s)
+    srv.check_overflow()
+    torch.cuda.synchronize()
+    n_blocks = int(srv.layer.num_blocks)
+    assert n_blocks >= STRESS_MIN_BLOCKS, n_blocks
+    assert srv.projective_budgets != budgets0, "the budgets never grew"
+
+    reset_counts()
+    syncs0 = _runtime.SYNCS
+    t0 = time.perf_counter()
+    for i in range(STRESS_TIMED):
+        stress_step(srv, scans[i % len(scans)])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / STRESS_TIMED * 1e3
+    syncs = (_runtime.SYNCS - syncs0) / STRESS_TIMED
+    launches = esdf_relax.LAUNCHES
+    assert launches > 0 and esdf_relax.STRIDED_LAUNCHES == 0
+    srv.check_overflow()
+    res = dict(ms_per_scan=ms, blocks=n_blocks, warm_circle_s=warm_s,
+               blocks_after_scans=blocks_at,
+               relax_launches=launches,
+               relax_launches_per_scan=launches / STRESS_TIMED,
+               host_syncs_per_scan=syncs,
+               budgets_start=budgets0, budgets=dict(srv.projective_budgets),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               voxel_bytes=(srv.layer.memory_bytes()
+                            + srv.esdf_layer.memory_bytes()),
+               mesh_pool_bytes=srv.mesh_pool.tris.numel() * 4)
+    if profile:
+        res["profile"] = profile_window(
+            srv, lambda i: stress_step(srv, scans[(16 + i) % len(scans)]),
+            "chiprun_out/stress_trace.json")
+        res["profile"]["device_busy_share_of_step"] = (
+            res["profile"]["device_busy_ms_per_scan"] / ms)
+
+    # The mesh: full re-mesh through the pool (overflow rows rebuilt by the
+    # dense fallback on export) against the host path, then the surface.
+    t0 = time.perf_counter()
+    ml = srv.generate_mesh()
+    gen_s = time.perf_counter() - t0
+    n_ovf = int((srv.mesh_pool.overflow_rows & srv.layer.active_mask()).sum())
+    v, nrm, _ = ml.combined()
+    assert len(v) > STRESS_MIN_VERTS and len(v) % 3 == 0, len(v)
+    assert np.isfinite(v).all() and np.isfinite(nrm).all()
+    host = mesh_ops.MeshLayer(srv.layer.block_size)
+    mesh_ops.generate_mesh(srv.layer, host, srv.mesh_config,
+                           only_updated=False, clear_updated_flag=False)
+    # No overflow row is left out: block for block, the pool's export has
+    # the triangles of the uncapped host march.
+    assert set(ml.blocks) == set(host.blocks)
+    for key, blk in host.blocks.items():
+        assert len(ml.blocks[key].vertices) == len(blk.vertices), key
+    err = surface_error(v)
+    res.update(mesh_triangles=len(v) // 3, mesh_blocks=len(ml.blocks),
+               mesh_overflow_rows_rebuilt=n_ovf, generate_mesh_s=gen_s,
+               surface_err_max=float(err.max()),
+               surface_err_p999=float(np.quantile(err, 0.999)),
+               surface_err_mean=float(err.mean()))
+    log("stress loop: " + json.dumps(res))
+    assert err.max() <= STRESS_VOXEL, (
+        f"mesh vertex {err.max():.4f} m off the surface")
+    esdf = srv.esdf_layer.channels["esdf"]
+    assert torch.isfinite(esdf).all()
+    assert float(esdf.abs().max()) <= 1.0 + 1e-6
+    res["esdf_rebuild"] = stress_rebuild_check(srv, dev)
+    return res
+
+
+def stress_rebuild_check(srv, dev):
+    """K1 on the stress map's own data: a batch ESDF rebuild of the 2 cm
+    TSDF map with the stress configuration (the sweep runs over the whole
+    6144-row pool, as the loop's incremental update does), once through
+    the kernel and once through the plain relaxation; flags identical,
+    ESDF equal on observed voxels."""
+    def rebuild(impl):
+        fresh = vlayer.make_layer("esdf", STRESS_VOXEL, vps=16,
+                                  max_blocks=STRESS_BLOCKS, device=dev)
+        before = esdf_relax.LAUNCHES
+        t0 = time.perf_counter()
+        e, ovf, r_ovf, it = esdf_ops.update_from_tsdf_batch_deferred(
+            fresh, srv.layer, srv.esdf_cfg, relax_impl=impl)
+        assert not any(_runtime.host_bools([ovf, r_ovf]))
+        return (e, it, esdf_relax.LAUNCHES - before,
+                time.perf_counter() - t0)
+
+    e_k, it_k, launches, s_k = rebuild("kernel")
+    e_p, it_p, plain_launches, s_p = rebuild("plain")
+    assert launches > 0 and plain_launches == 0, (launches, plain_launches)
+    assert it_k == it_p, (it_k, it_p)
+    assert torch.equal(e_k.channels["esdf_flags"], e_p.channels["esdf_flags"])
+    obs = (e_k.channels["esdf_flags"] & 1) != 0
+    err = float((e_k.channels["esdf"] - e_p.channels["esdf"])[obs].abs().max())
+    res = dict(outer_iters=it_k, relax_launches=launches, kernel_s=s_k,
+               plain_s=s_p, observed_voxels=int(obs.sum()),
+               kernel_vs_plain_max_abs_err=err)
+    log("stress esdf rebuild: " + json.dumps(res))
+    assert err <= 1e-5, err
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     dev = torch.device("cuda")
-    out = {}
+    out = {"phase_seconds": {}}
+    clock = [time.perf_counter()]
+
+    def done(phase):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out["phase_seconds"][phase] = now - clock[0]
+        log(f"[{phase}: {now - clock[0]:.1f} s]")
+        clock[0] = now
 
     # 1. Device.
     smi = subprocess.run(
@@ -233,13 +718,14 @@ def main():
         f"cuda {torch.version.cuda}")
     out["device"] = dict(name=name, nvidia_smi=smi)
 
-    # 2. Build.
+    # 2. Build (one source file holds both kernels: one nvcc run).
     t0 = time.perf_counter()
     esdf_relax.build()
     esdf_relax._lib()
     out["build_s"] = time.perf_counter() - t0
     log(f"build: {out['build_s']:.1f} s "
         f"{esdf_relax.BUILD_INFO.get('ptxas', '(cached)')}")
+    done("build")
 
     # 3. Main path at full size, kernel relaxation.
     t0 = time.perf_counter()
@@ -248,13 +734,9 @@ def main():
     log(f"scans: {len(scans)} x {RES} in {time.perf_counter() - t0:.1f} s")
     srv = make_server(dev, intr, "kernel")
     torch.cuda.reset_peak_memory_stats()
-
-    def zero_counts():
-        esdf_relax.LAUNCHES = 0
-
-    win = run_loop(srv, scans, on_window_start=zero_counts)
+    win = run_loop(srv, scans, on_window_start=reset_counts)
     launches = win["relax_launches"]
-    bucket = esdf_ops._BUCKET_CACHE[(4096, 16, 1024)]
+    bucket = esdf_ops._BUCKET_CACHE[(MAX_BLOCKS, 16, 1024)]
     win.update(bucket=bucket,
                max_memory_allocated=torch.cuda.max_memory_allocated())
     log("main path: " + json.dumps(win))
@@ -264,41 +746,19 @@ def main():
     obs = (srv.esdf_layer.channels["esdf_flags"] & 1) != 0
     tsdf = srv.layer.channels["tsdf"]
     assert torch.isfinite(esdf).all() and torch.isfinite(tsdf).all()
-    assert int(obs.sum()) > 100_000, int(obs.sum())
+    assert int(obs.sum()) > MIN_OBSERVED, int(obs.sum())
     assert float(esdf[obs].abs().max()) <= 2.0 + 1e-6
     assert float(tsdf.abs().max()) <= 4 * VOXEL + 1e-6
     out["main"] = win
+    done("main")
 
-    # 4. Kernel against its plain version at the main path's size.
-    n = bucket
-    inputs = [random_relax_inputs(n, seed, dev) for seed in range(7)]
-    max_err = 0.0
-    for x in inputs:
-        got = esdf_relax.relax(*x, 4, VOXEL, 2.0, 0.001)
-        ref = esdf_relax.relax_plain(*x, 4, VOXEL, 2.0, 0.001)
-        torch.cuda.synchronize()
-        max_err = max(max_err, float((got - ref).abs().max()))
-    assert max_err == 0.0, f"kernel differs from plain version: {max_err}"
-    ms, k_times = _cuda_ms(lambda x: esdf_relax.relax(*x, 4, VOXEL, 2.0,
-                                                      0.001), inputs)
-    plain_ms, p_times = _cuda_ms(lambda x: esdf_relax.relax_plain(
-        *x, 4, VOXEL, 2.0, 0.001), inputs)
-    act = statistics.median(int(x[3].sum()) for x in inputs)
-    # Work this run's inputs need (note in csrc/esdf_relax.cu): every
-    # active block's sweeps; d read and the new output written for all n
-    # blocks, obs and upd read for active blocks only.
-    ops = act * 4 * esdf_relax.OPS_PER_BLOCK_SWEEP
-    nbytes = n * 18 ** 3 * (4 + 4) + act * 18 ** 3 * (1 + 1) + n
-    bound_ms = max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3
-    bound_by = "operations" if ops / PEAK_F32 > nbytes / PEAK_BYTES else (
-        "bytes")
-    kern = dict(n_blocks=n, active_blocks=act, inner_sweeps=4,
-                tolerance="exact (bit-equal)", ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                ops=ops, bytes=nbytes, kernel_times_ms=k_times,
-                plain_times_ms=p_times, max_abs_err=max_err)
-    log("kernel: " + json.dumps(kern))
-    out["kernel"] = kern
+    # 4. K1 against its plain version at the online loop's shape and at
+    # the stress loop's (the unit batch rebuild's follows its phase).
+    k1 = k1_phase(bucket, dev, VOXEL, 2.0, "online loop")
+    out["kernel"] = k1
+    k1_other = [k1_phase(STRESS_BLOCKS, dev, STRESS_VOXEL, 1.0,
+                         "stress loop")]
+    done("kernel K1")
 
     # 5. Replay with the plain relaxation, selected explicitly.
     ref_srv = make_server(dev, intr, "plain")
@@ -316,25 +776,72 @@ def main():
     log(f"replay: TSDF identical, ESDF max |kernel - plain| on observed "
         f"voxels = {replay_err}")
     out["replay_max_abs_err"] = replay_err
+    del ref_srv
+    done("replay")
+
+    # 6. Batch ESDF rebuild of that map, unit and strided.
+    out["batch"] = batch_phase(srv.layer, dev)
+    done("batch esdf")
+    batch_bucket = out["batch"]["unit"]["bucket"]
+    if batch_bucket != bucket:
+        k1_other.append(k1_phase(batch_bucket, dev, VOXEL, 2.0,
+                                 "unit batch rebuild"))
+        done("kernel K1 at the batch bucket")
+    out["kernel_other_shapes"] = k1_other
+
+    # 7. K2 against its plain version at the batch rebuild's bucket.
+    k2 = k2_phase(out["batch"]["strided"]["bucket"], dev)
+    out["kernel_k2"] = k2
+    done("kernel K2")
 
     if args.profile:
-        # After the replay check: these scans change the kernel server's map.
-        out["profile"] = profile_window(srv, scans)
+        # After the replay and batch checks: these scans change the map.
+        def online_step(i):
+            s = scans[(16 + i) % len(scans)]
+            srv.insert_pointcloud_and_update_esdf(s[:2], *s[2:])
+
+        out["profile"] = profile_window(srv, online_step,
+                                        "chiprun_out/online_trace.json")
         # Busy share against the unprofiled step time (the profiler itself
         # slows the host side of the traced window).
         out["profile"]["device_busy_share_of_step"] = (
             out["profile"]["device_busy_ms_per_scan"] / win["ms_per_scan"])
         log("profile: " + json.dumps(out["profile"]))
+        done("profile online")
+    del srv
+    torch.cuda.empty_cache()
+
+    # 8. The 2 cm stress loop, with a mesh update every scan.
+    out["stress"] = stress_phase(scans, intr, dev, args.profile)
+    done("stress")
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as f:
         json.dump(out, f, indent=1)
-    line = {"kernels": [dict(
-        name="esdf_relax_k1", route="cuda",
-        source="voxblox_tpu_torch/csrc/esdf_relax.cu",
-        replaces="voxblox_tpu/ops/pallas/esdf_relax.py:52",
-        launches=launches, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)]}
+    src = "voxblox_tpu_torch/csrc/esdf_relax.cu"
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    shape_keys = ("path", "n_blocks", "voxel_size", "max_distance") + keys
+    # ``launches`` is the count from the path that is the kernel's own (K1:
+    # the online loop's timed window; K2: the strided batch rebuilds); the
+    # other paths' counts, and K1 at their shapes, stand beside it.
+    line = {"kernels": [
+        dict(name="esdf_relax_k1", route="cuda", source=src,
+             replaces="voxblox_tpu/ops/pallas/esdf_relax.py:52",
+             launches=launches, **{k: k1[k] for k in keys},
+             library_ms=None,
+             launches_by_path=dict(
+                 online_loop=launches,
+                 batch_unit=out["batch"]["unit"]["launches"],
+                 stress_loop=out["stress"]["relax_launches"]),
+             other_shapes=[{k: o[k] for k in shape_keys}
+                           for o in k1_other]),
+        dict(name="esdf_relax_k2", route="cuda", source=src,
+             replaces="voxblox_tpu/ops/pallas/esdf_relax.py:208",
+             launches=out["batch"]["strided"]["strided_launches"],
+             **{k: k2[k] for k in keys}, library_ms=None,
+             launches_by_path=dict(
+                 batch_strided=out["batch"]["strided"]["strided_launches"])),
+    ]}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -220,6 +220,131 @@ def test_online_step_matches_jax_end_to_end(tmp_path):
         atol=1e-4, channels=["tsdf", "weight"])
 
 
+# The 2 cm stress configuration (benchmarks/stress_bench.py) at full scan
+# resolution, a short arc of its orbit, a pool cut to the arc. The ESDF
+# runs one cheap XLA-path sweep per scan: this test is about allocation.
+SETUP_2CM = textwrap.dedent("""
+    N_POSES_2CM = int(os.environ.get("VOXBLOX_TORCH_PARITY_POSES", "2"))
+    MAP_2CM = dict(voxel_size=0.02, max_blocks=512 * (N_POSES_2CM + 1),
+                   table_capacity=16384)
+    TSDF_2CM = dict(default_truncation_distance=0.08, max_ray_length_m=8.0)
+    ESDF_2CM = dict(max_distance_m=1.0, default_distance_m=1.0,
+                    min_distance_m=0.04,
+                    max_active_blocks=MAP_2CM["max_blocks"],
+                    use_pallas_kernel=False, inner_sweeps=1,
+                    max_outer_sweeps_incremental=1)
+    BUDGETS_2CM = dict(projective_max_visible_blocks=512,
+                       projective_max_mixed_slabs=4096,
+                       projective_max_free_slabs=512)
+    RES_2CM = (640, 480)
+""")
+exec(SETUP_2CM)
+
+_JAX_SIDE_2CM = "import os\n" + SETUP_2CM + textwrap.dedent("""
+    import sys
+    import numpy as np
+    import jax.numpy as jnp
+    sys.path.insert(0, "tests")
+    import torch_parity
+    from voxblox_tpu.core.config import (
+        EsdfIntegratorConfig, MapConfig, TsdfIntegratorConfig)
+    from voxblox_tpu.server.mapper import EsdfServer
+
+    out_dir = sys.argv[1]
+    z = np.load(out_dir + "/scans.npz")
+    srv = EsdfServer(
+        map_config=MapConfig(**MAP_2CM),
+        integrator_config=TsdfIntegratorConfig(**TSDF_2CM),
+        esdf_config=EsdfIntegratorConfig(**ESDF_2CM), method="projective",
+        projective_resolution=(RES_2CM[0] // 2, RES_2CM[1] // 2),
+        projective_fov_deg=float(z["fov"]),
+        projective_intrinsics=tuple(float(v) for v in z["intr"]),
+        projective_pool=2, overflow_check_interval=8, **BUDGETS_2CM)
+    for i in range(len(z["R"])):
+        srv.insert_pointcloud_and_update_esdf(
+            (jnp.asarray(z["R"][i]), jnp.asarray(z["t"][i])),
+            z["pts"][i], z["col"][i])
+    srv.check_overflow()
+    res = {"budgets": np.asarray([-1 if v is None else v for v in (
+        srv.projective_budgets[k] for k in (
+            "max_visible_blocks", "max_mixed_slabs", "max_free_slabs"))])}
+    for k, v in torch_parity.jax_layer_to_numpy(srv.layer).items():
+        res["tsdf/" + k] = np.asarray(v)
+    np.savez(out_dir + "/jax.npz", **res)
+""")
+
+
+def test_two_cm_allocation_and_budget_ladder_match_jax(tmp_path):
+    """The stress loop's configuration (2 cm voxels, 640x480 scans pooled
+    to 320x240, 8 m rays, budgets 512/4096/512 undersized on purpose,
+    deferred overflow checks) over the first poses of its orbit, through
+    both packages: the same blocks in the same pool rows, the same budgets
+    after grow-and-retry, the same TSDF. ``VOXBLOX_TORCH_PARITY_POSES=8``
+    runs a quarter of the orbit (a few minutes)."""
+    w = tsw.SimulationWorld()
+    w.add_cylinder((0.0, 0.0, 2.0), 2.0, 4.0, color=(0, 255, 0))
+    w.add_ground_level(0.0)
+    objs = w.freeze("cpu")
+    scans = []
+    for i in range(N_POSES_2CM):
+        a = 2 * np.pi * i / 32
+        view = torch.tensor([-np.cos(a), -np.sin(a), 0.0], dtype=torch.float32)
+        R = tsw.rotation_from_two_vectors(torch.tensor([0.0, 0.0, 1.0]), view)
+        t = torch.tensor([4 * np.cos(a), 4 * np.sin(a), 2.0],
+                         dtype=torch.float32)
+        pts, col, _, intr = tsw.organized_pointcloud_from_transform(
+            objs, (R, t), RES_2CM, np.deg2rad(FOV_DEG), 8.0)
+        scans.append((R, t, pts, col))
+    np.savez(tmp_path / "scans.npz",
+             R=np.stack([s[0].numpy() for s in scans]),
+             t=np.stack([s[1].numpy() for s in scans]),
+             pts=np.stack([s[2].numpy() for s in scans]),
+             col=np.stack([s[3].numpy() for s in scans]),
+             fov=np.asarray(FOV_DEG), intr=np.asarray(intr))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", _JAX_SIDE_2CM, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    z = np.load(tmp_path / "jax.npz")
+
+    srv = EsdfServer(
+        map_config=MapConfig(**MAP_2CM),
+        integrator_config=TsdfIntegratorConfig(**TSDF_2CM),
+        esdf_config=EsdfIntegratorConfig(**ESDF_2CM),
+        projective_resolution=(RES_2CM[0] // 2, RES_2CM[1] // 2),
+        projective_fov_deg=FOV_DEG, projective_intrinsics=intr,
+        projective_pool=2, overflow_check_interval=8, device="cpu",
+        **BUDGETS_2CM)
+    for R, t, pts, col in scans:
+        srv.insert_pointcloud_and_update_esdf((R, t), pts, col)
+    srv.check_overflow()
+
+    got_b = [-1 if v is None else v for v in (
+        srv.projective_budgets[k] for k in (
+            "max_visible_blocks", "max_mixed_slabs", "max_free_slabs"))]
+    assert got_b == z["budgets"].tolist(), (got_b, z["budgets"])
+    assert got_b != [512, 4096, 512], "the budgets never grew"
+    ref = _layer_dict(z, "tsdf/")
+    got = tlayer.layer_to_numpy(srv.layer)
+    n = int(got["num_blocks"])
+    assert n == int(ref["num_blocks"]), (n, int(ref["num_blocks"]))
+    assert n > 500
+    # The same blocks in the same rows.
+    np.testing.assert_array_equal(got["block_ijk"][:n], ref["block_ijk"][:n])
+    # The same TSDF, but for voxels whose centre projects onto a pixel
+    # border or a depth edge, where the two packages' float rounding can
+    # pick different pixels: fewer than one observed voxel in 100,000.
+    gw, rw = got["channel/weight"][:n], ref["channel/weight"][:n]
+    gt, rt = got["channel/tsdf"][:n], ref["channel/tsdf"][:n]
+    off = (np.abs(gw - rw) > 1e-4) | (np.abs(gt - rt) > 1e-4)
+    observed = int((rw > 0).sum())
+    assert observed > 100_000
+    assert off.sum() <= observed * 1e-5, (int(off.sum()), observed)
+    assert ((gw > 0) != (rw > 0)).sum() <= observed * 1e-5
+
+
 def test_unported_requests_raise():
     kw = dict(device="cpu")
     with pytest.raises(NotImplementedError):
@@ -232,11 +357,21 @@ def test_unported_requests_raise():
         EsdfServer(esdf_config=EsdfIntegratorConfig(
             full_euclidean_distance=True), **kw)
     with pytest.raises(NotImplementedError):
-        EsdfServer(esdf_config=EsdfIntegratorConfig(
-            sweep_strides=(8, 4, 2, 1)), **kw)
-    srv = TsdfServer(**kw)
+        EsdfServer(clear_sphere_for_planning=True, **kw)
     with pytest.raises(NotImplementedError):
-        srv.update_mesh()
+        TsdfServer(max_block_distance_from_body=3.0, **kw)
+    # The strided schedule and meshing are ported: they construct and run.
+    EsdfServer(esdf_config=EsdfIntegratorConfig(
+        sweep_strides=(8, 4, 2, 1)), **kw)
+    srv = TsdfServer(**kw)
+    srv.update_mesh()
+    assert len(srv.generate_mesh().blocks) == 0
+    with pytest.raises(NotImplementedError):
+        srv.generate_mesh("mesh.ply")
+    with pytest.raises(NotImplementedError):
+        srv.save_map("map.vxblx")
+    with pytest.raises(NotImplementedError):
+        srv.load_map("map.vxblx")
 
 
 def test_two_dispatch_path_matches_fused_step():

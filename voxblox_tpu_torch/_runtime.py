@@ -5,9 +5,10 @@ missing GPU raises instead of quietly running on the CPU.
 
 Data-dependent loops (hash probe rounds, allocation rounds, the ESDF
 outer sweep) are eager Python loops that read one device value per
-iteration. On the GPU each read is a host sync: ``host_bool``/``host_int``
-are the only places the port reads a device value to steer control flow,
-and ``SYNCS`` counts them so a run can report syncs per scan.
+iteration. On the GPU each read is a host sync: the ``host_*`` functions
+and ``to_host`` (exports) are the only places the port reads a device
+value on the host, and ``SYNCS`` counts them so a run can report syncs
+per scan.
 """
 
 from __future__ import annotations
@@ -65,3 +66,20 @@ def host_bools(ts) -> list:
         return []
     SYNCS += 1
     return [bool(x) for x in torch.stack([t.reshape(()) for t in ts]).cpu()]
+
+
+def host_ints(ts) -> list:
+    """Read several device integers with one transfer (one host sync)."""
+    global SYNCS
+    if not ts:
+        return []
+    SYNCS += 1
+    return [int(x) for x in torch.stack(
+        [t.reshape(()).to(torch.int64) for t in ts]).cpu()]
+
+
+def to_host(t) -> np.ndarray:
+    """Copy a device tensor to a numpy array (one host sync)."""
+    global SYNCS
+    SYNCS += 1
+    return t.detach().cpu().numpy()

@@ -63,9 +63,10 @@ class EsdfIntegratorConfig:
     max_outer_sweeps: int = 64
     # Rows materialized per sweep (None = whole pool); see ops/esdf.
     max_active_blocks: Optional[int] = None
-    # Relax in the hand-written kernel's padded-block path (K1; vps 16).
+    # Relax in the hand-written kernels' padded-block path (vps 16).
     use_pallas_kernel: bool = False
-    # Strided schedule: not ported; a non-unit schedule raises.
+    # Kernel-path relaxation schedule: one sweep per entry at that stride
+    # (e.g. (8, 4, 2, 1, 1, 1, 1)); None = ``inner_sweeps`` unit sweeps.
     sweep_strides: Optional[tuple] = None
     # Incremental outer-sweep cap with carried SWEEP_DEBT.
     max_outer_sweeps_incremental: Optional[int] = None

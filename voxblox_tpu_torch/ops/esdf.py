@@ -1,5 +1,5 @@
 """ESDF propagation by parallel 26-neighbour relaxation sweeps,
-quasi-Euclidean unit-stride path (port of voxblox_tpu/ops/esdf.py).
+quasi-Euclidean path (port of voxblox_tpu/ops/esdf.py).
 
 Seeding classifies every observed TSDF voxel (fixed band copies the TSDF
 distance, the rest start at sign * default); the raise resets the
@@ -14,9 +14,13 @@ Layout: the sweep state is a stack of halo-padded cubes
 ``[n, v+2, v+2, v+2]`` ([z, y, x]); the halo exchange refreshes the ring
 from the 26 neighbours' interiors with one gather. With
 ``use_pallas_kernel`` (and vps 16) each outer iteration is one launch of
-K1 (ops/esdf_relax.relax); otherwise the plain ``_relax_once``
-transcription of the XLA path runs. The full-Euclidean parent path and
-the strided schedule are not ported and raise ``NotImplementedError``.
+the relaxation kernel (ops/esdf_relax.relax): K1, or K2 when
+``sweep_strides`` has a stride > 1, whose per-voxel jump codes
+(``stride_codes``) are built once per sweep by halo-synchronized erosion.
+Otherwise the plain ``_relax_once`` transcription of the XLA path runs
+(which ignores ``sweep_strides``, as the reference does). The
+full-Euclidean parent path is not ported and raises
+``NotImplementedError``.
 
 The outer loop is a Python loop reading one device flag per iteration
 (``_runtime.host_bool``); its first iteration needs no read.
@@ -54,9 +58,6 @@ def _check_cfg(cfg: EsdfIntegratorConfig):
     if cfg.full_euclidean_distance:
         raise NotImplementedError(
             "full-Euclidean ESDF (parent vectors) is not ported")
-    if cfg.sweep_strides and any(int(k) != 1 for k in cfg.sweep_strides):
-        raise NotImplementedError(
-            "the strided relaxation schedule is not ported")
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +139,104 @@ def _pad(x, n: int, v: int):
                       device=x.device)
     out[:, 1:-1, 1:-1, 1:-1] = x.reshape(n, v, v, v)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Strided-jump admissibility codes
+# ---------------------------------------------------------------------------
+
+
+def erode1(m):
+    """One Chebyshev (3x3x3 box) erosion of a bool mask on padded cubes
+    [n, P, P, P], separable over x, y, z; the ring is zeroed
+    (conservative) — callers refill it from the neighbour blocks between
+    steps. Port of ``erode1_2d``."""
+    out = torch.zeros_like(m)
+    mx = m[..., :-2] & m[..., 1:-1] & m[..., 2:]
+    my = mx[:, :, :-2] & mx[:, :, 1:-1] & mx[:, :, 2:]
+    out[:, 1:-1, 1:-1, 1:-1] = my[:, :-2] & my[:, 1:-1] & my[:, 2:]
+    return out
+
+
+def _erosion_codes(m, strides, exchange):
+    """uint8 code cube of one sign's traversable mask ``m``: level i+1
+    where the Chebyshev ball of radius ``stride_radii(strides)[i]`` is
+    traversable. ``exchange`` refills the ring after each erosion step."""
+    code = torch.zeros(m.shape, dtype=torch.uint8, device=m.device)
+    done = 0
+    for r in esdf_relax.stride_radii(strides):
+        for _ in range(r - done):
+            m = exchange(erode1(m))
+        done = r
+        code += m
+    return code
+
+
+def stride_codes(d_pad, obs_pad, fixed_pad, nbr, strides):
+    """Per-voxel strided-jump admissibility codes (code_pos, code_neg),
+    uint8 [n, P, P, P] (port of ``_stride_codes_2d``). A voxel's code
+    reaches level i+1 iff the Chebyshev ball of radius
+    ``stride_radii(strides)[i]`` around it is traversable on that sign's
+    side: observed, not fixed, and of that sign (``d > 0`` positive,
+    ``d <= 0`` negative) in the seeded field. One erosion then one halo
+    exchange per unit radius, so admissibility flows across block
+    borders; blocks with a missing neighbour keep a zero ring there
+    (conservative). Observedness, fixedness and signs are static across
+    sweeps, so the codes are built once per update."""
+    trav = obs_pad & ~fixed_pad
+    pos = d_pad > 0.0
+
+    def exchange(m):
+        return halo_exchange(m, nbr)
+
+    return (_erosion_codes(trav & pos, strides, exchange),
+            _erosion_codes(trav & ~pos, strides, exchange))
+
+
+def stride_codes_standalone(d_pad, upd_pad, strides):
+    """Codes for standalone padded blocks (no neighbour table), as
+    ``relax_padded`` builds them: traversable = may update, split by the
+    voxel sign, eroded without a halo refresh (zero ring each step)."""
+    pos = d_pad > 0.0
+    return (_erosion_codes(upd_pad & pos, strides, lambda m: m),
+            _erosion_codes(upd_pad & ~pos, strides, lambda m: m))
+
+
+def stride_gate_stats(esdf_layer, cfg: EsdfIntegratorConfig):
+    """Diagnostic: how many observed voxels (and blocks holding any) may
+    take each stride-k jump of ``cfg.sweep_strides`` on the current
+    field. Full-pool build, one host read. Returns a dict with ``radii``,
+    ``admitted_voxels``/``admitted_blocks`` (per level),
+    ``observed_voxels`` and ``active_blocks``."""
+    if esdf_layer.vps != 16:
+        raise ValueError("stride gate requires vps=16 (kernel layout)")
+    radii = esdf_relax.stride_radii(cfg.sweep_strides or ())
+    active = esdf_layer.active_mask()
+    v, mb = esdf_layer.vps, esdf_layer.max_blocks
+    flags = torch.where(active[:, None], esdf_layer.channels["esdf_flags"],
+                        0).to(torch.uint8)
+    obs = (flags & OBS) != 0
+    counts = [active.sum(), obs.sum()]
+    if radii:
+        nbr = neighbor_slot_table(esdf_layer).to(torch.int64)
+        fixed = (flags & FIX) != 0
+        d_pad = halo_exchange(_pad(esdf_layer.channels["esdf"], mb, v), nbr)
+        obs_pad = halo_exchange(_pad(obs, mb, v), nbr)
+        fixed_pad = halo_exchange(_pad(fixed, mb, v), nbr)
+        cp, cn = stride_codes(d_pad, obs_pad, fixed_pad, nbr,
+                              cfg.sweep_strides)
+        code = torch.maximum(cp, cn)[:, 1:-1, 1:-1, 1:-1].reshape(mb, -1)
+        for lvl in range(1, len(radii) + 1):
+            hit = code >= lvl
+            counts += [hit.sum(), hit.any(1).sum()]
+    vals = _runtime.host_ints(counts)
+    return {
+        "radii": tuple(radii),
+        "active_blocks": vals[0],
+        "observed_voxels": vals[1],
+        "admitted_voxels": vals[2::2],
+        "admitted_blocks": vals[3::2],
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -326,6 +425,14 @@ def _sweep_on(esdf_layer, d, flags, nbr, region_rows, cfg, write_back_rows,
     relax = esdf_relax.relax if relax_impl == "kernel" else (
         esdf_relax.relax_plain)
     upd_c = upd.view(n, v, v, v)
+    codes = None
+    if use_kernel and cfg.sweep_strides and any(
+            int(k) > 1 for k in cfg.sweep_strides):
+        # Observedness, fixedness and signs are static across the sweep:
+        # the jump codes are built once, from the seeded state.
+        fixed_pad = halo_exchange(_pad(fixed, n, v), nbr)
+        codes = stride_codes(d_pad, obs_pad, fixed_pad, nbr,
+                             cfg.sweep_strides)
     while it < cfg.max_outer_sweeps and (it == 0 or _runtime.host_bool(
             rc.any())):
         if use_kernel:
@@ -337,7 +444,8 @@ def _sweep_on(esdf_layer, d, flags, nbr, region_rows, cfg, write_back_rows,
                                    False).any(1)
             new = relax(d_pad, obs_pad, upd_pad, act, cfg.inner_sweeps,
                         esdf_layer.voxel_size, cfg.max_distance_m,
-                        cfg.min_diff_m)
+                        cfg.min_diff_m, strides=cfg.sweep_strides,
+                        codes=codes)
         else:
             new = d_pad
             di = d_pad[:, 1:-1, 1:-1, 1:-1]

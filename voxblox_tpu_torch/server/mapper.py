@@ -8,8 +8,13 @@ of voxblox_tpu/server/mapper.py).
   update_esdf`` is the online step (integrate + incremental ESDF per
   scan) with overflow flags kept on the device until ``check_overflow``.
 
-Not ported yet (they raise): ICP, meshing, map IO, distance pruning,
-clear spheres, intensity and the simulation server.
+``update_mesh`` keeps a device-resident mesh pool up to date (one
+bucket of dirty blocks per call, no host read); ``generate_mesh`` /
+``export_mesh_layer`` drain it and export a host ``MeshLayer``.
+
+Not ported yet (they raise): ICP, map IO, PLY export, the mesh wire
+message, distance pruning, clear spheres, intensity and the simulation
+server.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from ..core.config import (
     TsdfIntegratorConfig,
 )
 from ..ops import esdf as esdf_ops
+from ..ops import mesh as mesh_ops
 from ..ops import projective as projective_ops
 
 
@@ -94,6 +100,12 @@ class TsdfServer:
             "tsdf", map_config.voxel_size, vps=map_config.voxels_per_side,
             max_blocks=map_config.max_blocks,
             table_capacity=map_config.table_capacity, device=self.device)
+        # The mesh lives on the device (ops/mesh.MeshPool); the host
+        # MeshLayer is only a cache filled on export.
+        self.mesh_pool = mesh_ops.make_mesh_pool(
+            map_config.max_blocks, mesh_config.device_tri_cap, self.device)
+        self.mesh_layer = mesh_ops.MeshLayer(self.layer.block_size)
+        self._mesh_more = None  # device flag: dirty rows beyond the bucket
         self.num_scans = 0
         self.overflow_check_interval = max(1, int(overflow_check_interval))
         self._overflow_acc = None  # device-side pool-overflow flag
@@ -216,13 +228,72 @@ class TsdfServer:
             raise MemoryError(
                 "block pool overflow; increase MapConfig.max_blocks")
 
-    # -- services not ported yet ------------------------------------------
+    # -- meshing ---------------------------------------------------------
     def update_mesh(self):
-        raise NotImplementedError("incremental meshing is not ported yet")
+        """Incremental mesh update: march up to ``update_bucket`` mesh-dirty
+        rows into the device mesh pool (no host read; export with
+        ``generate_mesh`` / ``export_mesh_layer``)."""
+        with record_function("mesh_update"):
+            self.layer, self.mesh_pool, more = mesh_ops.update_mesh_pool(
+                self.layer, self.mesh_pool, self.mesh_config,
+                bucket=self.mesh_config.update_bucket, only_updated=True)
+        self._mesh_more = _or(self._mesh_more, more)
+
+    def _drain_mesh_updates(self):
+        """Mesh every remaining dirty row. The dirty count is read once so
+        the loop runs without a read per iteration; a single ``more``
+        check then catches stragglers."""
+        bucket = self.mesh_config.update_bucket
+        while True:
+            n_dirty = _runtime.host_int(vlayer.dirty_mask(
+                self.layer, vlayer.DIRTY_MESH).sum())
+            self._mesh_more = None
+            if n_dirty == 0:
+                return
+            more = None
+            for _ in range(-(-n_dirty // bucket)):
+                self.layer, self.mesh_pool, more = mesh_ops.update_mesh_pool(
+                    self.layer, self.mesh_pool, self.mesh_config,
+                    bucket=bucket, only_updated=True)
+            if not _runtime.host_bool(more):
+                return
+
+    def export_mesh_layer(self) -> mesh_ops.MeshLayer:
+        """Drain pending mesh updates and transfer the device mesh pool
+        into the host MeshLayer cache."""
+        self._drain_mesh_updates()
+        mesh_ops.pool_to_mesh_layer(self.layer, self.mesh_pool,
+                                    self.mesh_layer, self.mesh_config)
+        return self.mesh_layer
 
     def generate_mesh(self, path: Optional[str] = None):
-        raise NotImplementedError("meshing is not ported yet")
+        """Full re-mesh: mark every active block mesh-dirty, drain and
+        export. Returns the host MeshLayer."""
+        if path:
+            raise NotImplementedError("PLY export is not ported yet")
+        rows = torch.arange(self.layer.max_blocks, dtype=torch.int32,
+                            device=self.device)
+        self.layer = vlayer.mark_dirty(self.layer, rows,
+                                       self.layer.active_mask(),
+                                       vlayer.DIRTY_MESH)
+        return self.export_mesh_layer()
 
+    def clear(self):
+        """Drop the map and the mesh; budgets and configuration stay."""
+        mc = self.map_config
+        self.layer = vlayer.make_layer(
+            "tsdf", mc.voxel_size, vps=mc.voxels_per_side,
+            max_blocks=mc.max_blocks, table_capacity=mc.table_capacity,
+            device=self.device)
+        self.mesh_pool = mesh_ops.make_mesh_pool(
+            mc.max_blocks, self.mesh_config.device_tri_cap, self.device)
+        self.mesh_layer = mesh_ops.MeshLayer(self.layer.block_size)
+        self._mesh_more = None
+        self.num_scans = 0
+        self._pending_scans = []
+        self._overflow_acc = None
+
+    # -- services not ported yet ------------------------------------------
     def save_map(self, path: str):
         raise NotImplementedError("map IO is not ported yet")
 
@@ -233,9 +304,9 @@ class TsdfServer:
 class EsdfServer(TsdfServer):
     """TsdfServer + incremental ESDF (esdf_server.{h,cc}).
 
-    ``relax_impl`` selects the ESDF relaxation: "kernel" (K1 on a CUDA
-    device, its plain version on the CPU) or "plain" (the plain PyTorch
-    version on any device — the reference the kernel is held against)."""
+    ``relax_impl`` selects the ESDF relaxation: "kernel" (K1/K2 on a CUDA
+    device, their plain version on the CPU) or "plain" (the plain PyTorch
+    version on any device — the reference the kernels are held against)."""
 
     def __init__(
         self,
