@@ -17,8 +17,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
              each path that launches it: the online loop's bucket, the
              unit batch rebuild's bucket where it differs (both 5 cm,
              max distance 2 m), and the stress loop's whole pool (6144
-             blocks, 2 cm, max distance 1 m); expect bit-equal, timed
-             with CUDA events
+             blocks, 2 cm, max distance 1 m; on random inputs here and on
+             the 2 cm map's own padded sweep inputs in phase 8); expect
+             bit-equal, timed with CUDA events
   5 replay   the same scans with the plain relaxation (relax_impl="plain"):
              TSDF identical, ESDF equal on observed voxels
   6 batch    batch ESDF rebuild of the phase-3 map, unit and strided
@@ -30,7 +31,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
              8 steps with mesh updates, 16 timed steps of integrate +
              incremental ESDF + mesh update; the exported mesh against
              the analytic surface; a batch ESDF rebuild of the 2 cm map
-             over the whole pool, kernel against plain relaxation
+             over the whole pool, kernel against plain relaxation; K1
+             timed on the inputs of that rebuild's first sweep
 Prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -64,9 +66,13 @@ from voxblox_tpu_torch.ops import esdf_relax  # noqa: E402
 from voxblox_tpu_torch.server.mapper import EsdfServer  # noqa: E402
 from voxblox_tpu_torch.sim import world as sw  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 non-tensor ops/s.
+# H100 SXM peaks: HBM bytes/s (NVIDIA data sheet) and the f32 instruction
+# rate outside the tensor cores. The relaxation is min, max, compare,
+# select and add, each one instruction a lane a clock: 132 SMs x 128 lanes
+# x 1.98 GHz boost clock. (The data sheet's 67 TFLOP/s is the same rate
+# with an FMA counted as two operations; no FMA occurs here.)
 PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
+PEAK_OPS = 132 * 128 * 1.98e9
 
 # bench.py online-loop configuration (bench.py:56-76, :461-487).
 RES = (640, 480)
@@ -92,18 +98,24 @@ STRESS_MIN_VERTS = 100_000
 MIN_DIFF = EsdfIntegratorConfig().min_diff_m  # what every path passes
 
 # Operations the relaxation needs (the count behind the kernels' bounds;
-# derivation in the notes of voxblox_tpu_torch/csrc/esdf_relax.cu). A unit
-# sweep of one block: packing each padded voxel once as a source, four
-# running extrema per interior voxel and neighbour, the per-voxel group
+# derivation in the note of voxblox_tpu_torch/csrc/esdf_relax.cu), by the
+# best arrangement known. A unit sweep of one block: packing each padded
+# voxel once as a source; per padded plane and packed field the in-plane
+# partial extrema shared by the three centres around the plane (left/right
+# pairs on 18 rows x 16 columns, up/down pairs, in-plane faces and
+# diagonals on 16 x 16); per interior voxel and field five extrema to
+# recombine three planes into the three step groups; the per-voxel group
 # finish. A strided sweep beyond the packing: per interior voxel the gate
 # test, per gated voxel and in-block neighbour one side's window test and
 # minimum, per gated voxel the finish.
 P = esdf_relax.P
 OPS_PACK = 10
-OPS_NEIGHBOUR = 4
+FIELDS = 4
+OPS_PLANE = FIELDS * (P * (P - 2) + 3 * (P - 2) ** 2)
+OPS_RECOMBINE = FIELDS * 5
 OPS_FINISH = 49
-OPS_PER_BLOCK_SWEEP = (P ** 3 * OPS_PACK
-                       + (P - 2) ** 3 * (26 * OPS_NEIGHBOUR + OPS_FINISH))
+OPS_PER_BLOCK_SWEEP = (P ** 3 * OPS_PACK + P * OPS_PLANE
+                       + (P - 2) ** 3 * (OPS_RECOMBINE + OPS_FINISH))
 OPS_GATE = 3
 OPS_STRIDED_NEIGHBOUR = 4
 OPS_STRIDED_FINISH = 11
@@ -114,11 +126,14 @@ def log(*a):
 
 
 def _cuda_ms(fn, inputs):
-    """Median device time of fn(x) over varied inputs (CUDA events)."""
+    """Median device time of fn(x) over varied inputs (CUDA events). A
+    short device-side spin goes first, so that the host enqueues the call
+    while the card is busy and the events bracket device time only."""
     times = []
     for x in inputs:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)  # ~1 ms
         a.record()
         fn(x)
         b.record()
@@ -240,7 +255,7 @@ def profile_window(srv, step, path, n=4):
         key = min(around, key=lambda p: p["dur"])["name"] if around else "?"
         key = key.split("voxblox_tpu_torch/")[-1]
         sites[key] = sites.get(key, 0) + 1
-    k1 = sum(e["dur"] for e in kern if e["name"].startswith("esdf_relax_k1"))
+    k1 = sum(e["dur"] for e in kern if "esdf_relax_k1" in e["name"])
     by_name = {}  # kernel time by (shortened) name
     for e in kern:
         by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + e["dur"]
@@ -297,25 +312,54 @@ def structured_relax_inputs(n, seed, dev, strides):
     return d, obs, upd, act, codes
 
 
-def relax_ops_needed(upd, active, schedule, codes=None, d=None):
-    """Operations ``relax`` needs for these inputs and this schedule (a
-    tuple of strides). A unit sweep costs ``OPS_PER_BLOCK_SWEEP`` per
-    active block. A strided sweep costs the packing, one gate test per
-    interior voxel and, for voxels that may update and whose own sign's
-    gate is open, the window test and minimum per neighbour that lies
-    inside the padded cube plus the finish."""
+def entries_needed(x, schedule, voxel, max_distance, codes=None):
+    """Which entries of ``schedule`` each block needs, bool [entries, n]:
+    none for a block that is inactive or has no voxel that may be written;
+    an entry that repeats the previous one's stride only where that one
+    changed a voxel of the block (the same sweep on an unchanged state
+    changes nothing). Found by running the entries one launch each."""
+    d, obs, upd, act = x[:4]
     levels = esdf_relax._levels(schedule)
-    n_act = int(active.sum())
-    v = P - 2
-    total = 0
-    ax = torch.arange(1, v + 1, device=upd.device)
+    work = act & upd.flatten(1).any(1)
+    need, cur, prev = [], d, None
     for k in schedule:
+        run = need[-1] & changed if k == prev else work
+        own = None
+        if k > 1:  # this stride's gate as a one-level code
+            own = tuple((c >= levels[k]).to(torch.uint8) for c in codes)
+        new = esdf_relax.relax(cur, obs, upd, run, 1, voxel, max_distance,
+                               MIN_DIFF, strides=(k,), codes=own)
+        changed = (new != cur).flatten(1).any(1)
+        need.append(run)
+        cur, prev = new, k
+    return torch.stack(need)
+
+
+def relax_work(x, schedule, voxel, max_distance, codes=None):
+    """(operations, bytes) ``relax`` needs for these inputs and this
+    schedule (a tuple of strides). Operations: a unit sweep costs
+    ``OPS_PER_BLOCK_SWEEP`` per block that needs it (``entries_needed``);
+    a strided sweep costs the packing, one gate test per interior voxel
+    and, for voxels that may update and whose own sign's gate is open, the
+    window test and minimum per neighbour that lies inside the padded cube
+    plus the finish. Bytes: d read and the output written for every block,
+    the active flags, upd read for active blocks, obs (and both code
+    cubes) for blocks that have a voxel to write."""
+    d, obs, upd, active = x[:4]
+    levels = esdf_relax._levels(schedule)
+    need = entries_needed(x, schedule, voxel, max_distance, codes)
+    n = d.shape[0]
+    v = P - 2
+    ops = 0
+    ax = torch.arange(1, v + 1, device=upd.device)
+    for k, run in zip(schedule, need):
+        n_run = int(run.sum())
         if k == 1:
-            total += n_act * OPS_PER_BLOCK_SWEEP
+            ops += n_run * OPS_PER_BLOCK_SWEEP
             continue
         own = torch.where(d > 0.0, codes[0], codes[1])
         gated = (upd & (own >= levels[k])
-                 & active.view(-1, 1, 1, 1))[:, 1:-1, 1:-1, 1:-1]
+                 & run.view(-1, 1, 1, 1))[:, 1:-1, 1:-1, 1:-1]
         per_cell = torch.zeros((v, v, v), dtype=torch.int64,
                                device=upd.device)
         for dx, dy, dz in esdf_relax._OFFSETS:
@@ -324,17 +368,19 @@ def relax_ops_needed(upd, active, schedule, codes=None, d=None):
             per_cell += (ok[0][:, None, None] & ok[1][None, :, None]
                          & ok[2][None, None, :])
         nbrs = int((gated * per_cell[None]).sum())
-        total += (n_act * (P ** 3 * OPS_PACK + v ** 3 * OPS_GATE)
-                  + nbrs * OPS_STRIDED_NEIGHBOUR
-                  + int(gated.sum()) * OPS_STRIDED_FINISH)
-    return total
+        ops += (n_run * (P ** 3 * OPS_PACK + v ** 3 * OPS_GATE)
+                + nbrs * OPS_STRIDED_NEIGHBOUR
+                + int(gated.sum()) * OPS_STRIDED_FINISH)
+    working = int(need[0].sum())
+    nbytes = (n * P ** 3 * (4 + 4) + n + int(active.sum()) * P ** 3
+              + working * P ** 3 * (3 if levels else 1))
+    return ops, nbytes
 
 
-def kernel_phase(name, inputs, run_kernel, run_plain, ops_of, bytes_of,
-                 extra):
+def kernel_phase(name, inputs, run_kernel, run_plain, work_of, extra):
     """One kernel against its plain version on ``inputs`` (expect
     bit-equal), both timed with CUDA events, and its bound from the
-    operations and bytes these inputs need."""
+    operations and bytes these inputs need (``work_of``)."""
     max_err = 0.0
     for x in inputs:
         got = run_kernel(x)
@@ -345,37 +391,36 @@ def kernel_phase(name, inputs, run_kernel, run_plain, ops_of, bytes_of,
     assert max_err == 0.0, f"{name} differs from its plain version: {max_err}"
     ms, k_times = _cuda_ms(run_kernel, inputs)
     plain_ms, p_times = _cuda_ms(run_plain, inputs)
-    ops = statistics.median(ops_of(x) for x in inputs)
-    nbytes = statistics.median(bytes_of(x) for x in inputs)
-    bound_ms = max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3
-    bound_by = "operations" if ops / PEAK_F32 > nbytes / PEAK_BYTES else (
+    work = [work_of(x) for x in inputs]
+    ops = statistics.median(w[0] for w in work)
+    nbytes = statistics.median(w[1] for w in work)
+    bound_ms = max(nbytes / PEAK_BYTES, ops / PEAK_OPS) * 1e3
+    bound_by = "operations" if ops / PEAK_OPS > nbytes / PEAK_BYTES else (
         "bytes")
     kern = dict(extra, tolerance="exact (bit-equal)", ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                ops=ops, bytes=nbytes, kernel_times_ms=k_times,
+                share_of_bound=bound_ms / ms, ops=ops, bytes=nbytes,
+                kernel_times_ms=k_times,
                 plain_times_ms=p_times, max_abs_err=max_err)
     log(f"{name}: " + json.dumps(kern))
     return kern
 
 
-def k1_phase(n, dev, voxel, max_distance, path):
+def k1_phase(n, dev, voxel, max_distance, path, inputs=None):
     """K1 at ``n`` padded blocks, 4 unit sweeps, with the voxel size and
     max distance of ``path`` (the step constants and the source window
-    follow from them), random inputs spanning 1.25 x the window."""
-    inputs = [random_relax_inputs(n, seed, dev, max_distance / 2.0)
-              for seed in range(7)]
+    follow from them), on ``inputs`` or else on random inputs spanning
+    1.25 x the window."""
+    if inputs is None:
+        inputs = [random_relax_inputs(n, seed, dev, max_distance / 2.0)
+                  for seed in range(7)]
     act = statistics.median(int(x[3].sum()) for x in inputs)
-    # Work the inputs need (note in csrc/esdf_relax.cu): every active
-    # block's sweeps; d read and the new output written for all n blocks,
-    # obs and upd read for active blocks only.
     return kernel_phase(
         f"kernel K1 ({path})", inputs,
         lambda x: esdf_relax.relax(*x, 4, voxel, max_distance, MIN_DIFF),
         lambda x: esdf_relax.relax_plain(*x, 4, voxel, max_distance,
                                          MIN_DIFF),
-        lambda x: relax_ops_needed(x[2], x[3], (1,) * 4),
-        lambda x: (n * 18 ** 3 * (4 + 4)
-                   + int(x[3].sum()) * 18 ** 3 * (1 + 1) + n),
+        lambda x: relax_work(x, (1,) * 4, voxel, max_distance),
         dict(path=path, n_blocks=n, active_blocks=act, inner_sweeps=4,
              voxel_size=voxel, max_distance=max_distance))
 
@@ -390,25 +435,21 @@ def k2_phase(n, dev):
     assert all(a > 0 for a in admitted), admitted
 
     def kernel(x):
-        return esdf_relax.relax(*x[:4], 4, VOXEL, 2.0, MIN_DIFF,
-                                strides=STRIDES, codes=x[4])
+        before = esdf_relax.STRIDED_LAUNCHES
+        out = esdf_relax.relax(*x[:4], 4, VOXEL, 2.0, MIN_DIFF,
+                               strides=STRIDES, codes=x[4])
+        assert esdf_relax.STRIDED_LAUNCHES == before + 1
+        return out
 
     def plain(x):
         return esdf_relax.relax_plain(*x[:4], 4, VOXEL, 2.0, MIN_DIFF,
                                       strides=STRIDES, codes=x[4])
 
-    before = esdf_relax.STRIDED_LAUNCHES
-    kern = kernel_phase(
+    return kernel_phase(
         "kernel K2", inputs, kernel, plain,
-        lambda x: relax_ops_needed(x[2], x[3], STRIDES, x[4], x[0]),
-        # d read and the output written for all n blocks; obs, upd and the
-        # two code cubes read for active blocks.
-        lambda x: (n * 18 ** 3 * (4 + 4)
-                   + int(x[3].sum()) * 18 ** 3 * 4 + n),
+        lambda x: relax_work(x, STRIDES, VOXEL, 2.0, x[4]),
         dict(n_blocks=n, active_blocks=act, strides=list(STRIDES),
              admitted_voxels_per_level=admitted))
-    assert esdf_relax.STRIDED_LAUNCHES == before + 14
-    return kern
 
 
 def random_relax_inputs(n, seed, dev, scale=1.0):
@@ -667,6 +708,14 @@ def stress_rebuild_check(srv, dev):
     6144-row pool, as the loop's incremental update does), once through
     the kernel and once through the plain relaxation; flags identical,
     ESDF equal on observed voxels."""
+    first = []  # the arguments of the kernel rebuild's first relaxation
+    relax = esdf_relax.relax
+
+    def capturing(*args, **kwargs):
+        if not first:
+            first.append((args, kwargs))
+        return relax(*args, **kwargs)
+
     def rebuild(impl):
         fresh = vlayer.make_layer("esdf", STRESS_VOXEL, vps=16,
                                   max_blocks=STRESS_BLOCKS, device=dev)
@@ -678,7 +727,11 @@ def stress_rebuild_check(srv, dev):
         return (e, it, esdf_relax.LAUNCHES - before,
                 time.perf_counter() - t0)
 
-    e_k, it_k, launches, s_k = rebuild("kernel")
+    esdf_relax.relax = capturing
+    try:
+        e_k, it_k, launches, s_k = rebuild("kernel")
+    finally:
+        esdf_relax.relax = relax
     e_p, it_p, plain_launches, s_p = rebuild("plain")
     assert launches > 0 and plain_launches == 0, (launches, plain_launches)
     assert it_k == it_p, (it_k, it_p)
@@ -690,6 +743,20 @@ def stress_rebuild_check(srv, dev):
                kernel_vs_plain_max_abs_err=err)
     log("stress esdf rebuild: " + json.dumps(res))
     assert err <= 1e-5, err
+    # K1 on those first-sweep inputs: the padded 2 cm map with its halo,
+    # every block of the pool active, as in the loop's single outer
+    # iteration.
+    (d_pad, obs_pad, upd_pad, act, sweeps, voxel, maxd, min_diff), kw = (
+        first[0])
+    assert (sweeps, voxel, maxd, min_diff) == (4, STRESS_VOXEL, 1.0,
+                                               MIN_DIFF), first[0][0][4:]
+    assert not kw.get("strides") and d_pad.shape[0] == STRESS_BLOCKS
+    x = (d_pad, obs_pad, upd_pad, act)
+    k1 = k1_phase(STRESS_BLOCKS, dev, STRESS_VOXEL, 1.0, "stress, map data",
+                  inputs=[x] * 7)
+    k1["blocks_with_voxels_to_write"] = int(
+        (act & upd_pad.flatten(1).any(1)).sum())
+    res["k1_on_map_data"] = k1
     return res
 
 
@@ -723,8 +790,13 @@ def main():
     esdf_relax.build()
     esdf_relax._lib()
     out["build_s"] = time.perf_counter() - t0
-    log(f"build: {out['build_s']:.1f} s "
-        f"{esdf_relax.BUILD_INFO.get('ptxas', '(cached)')}")
+    out["build_ptxas"] = esdf_relax.BUILD_INFO.get("ptxas", "(cached)")
+    ctas = dict(k1=esdf_relax.ctas_per_sm(False),
+                k2=esdf_relax.ctas_per_sm(True))
+    out["ctas_per_sm"] = ctas
+    log(f"build: {out['build_s']:.1f} s, CTAs per SM {ctas} "
+        f"{out['build_ptxas']}")
+    assert min(ctas.values()) >= 1, ctas
     done("build")
 
     # 3. Main path at full size, kernel relaxation.
@@ -787,7 +859,6 @@ def main():
         k1_other.append(k1_phase(batch_bucket, dev, VOXEL, 2.0,
                                  "unit batch rebuild"))
         done("kernel K1 at the batch bucket")
-    out["kernel_other_shapes"] = k1_other
 
     # 7. K2 against its plain version at the batch rebuild's bucket.
     k2 = k2_phase(out["batch"]["strided"]["bucket"], dev)
@@ -814,13 +885,16 @@ def main():
     # 8. The 2 cm stress loop, with a mesh update every scan.
     out["stress"] = stress_phase(scans, intr, dev, args.profile)
     done("stress")
+    k1_other.append(out["stress"]["esdf_rebuild"]["k1_on_map_data"])
+    out["kernel_other_shapes"] = k1_other
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as f:
         json.dump(out, f, indent=1)
     src = "voxblox_tpu_torch/csrc/esdf_relax.cu"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    shape_keys = ("path", "n_blocks", "voxel_size", "max_distance") + keys
+    shape_keys = ("path", "n_blocks", "active_blocks", "voxel_size",
+                  "max_distance") + keys
     # ``launches`` is the count from the path that is the kernel's own (K1:
     # the online loop's timed window; K2: the strided batch rebuilds); the
     # other paths' counts, and K1 at their shapes, stand beside it.
@@ -828,7 +902,7 @@ def main():
         dict(name="esdf_relax_k1", route="cuda", source=src,
              replaces="voxblox_tpu/ops/pallas/esdf_relax.py:52",
              launches=launches, **{k: k1[k] for k in keys},
-             library_ms=None,
+             library_ms=None, ctas_per_sm=ctas["k1"],
              launches_by_path=dict(
                  online_loop=launches,
                  batch_unit=out["batch"]["unit"]["launches"],
@@ -839,6 +913,7 @@ def main():
              replaces="voxblox_tpu/ops/pallas/esdf_relax.py:208",
              launches=out["batch"]["strided"]["strided_launches"],
              **{k: k2[k] for k in keys}, library_ms=None,
+             ctas_per_sm=ctas["k2"],
              launches_by_path=dict(
                  batch_strided=out["batch"]["strided"]["strided_launches"])),
     ]}

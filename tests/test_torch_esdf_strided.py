@@ -9,7 +9,9 @@ soundness regressions of tests/test_pallas_kernels.py (no tunnelling
 through an unobserved gap; a carved map) run on the port alone, against
 its own unit-stride XLA-path sweep at that file's atol 2e-3. The CUDA
 kernel is held against the plain version on the card (``cuda`` marker,
-tests/test_torch_mesh.py, and chip_smoke.py).
+here and in tests/test_torch_mesh.py, and chip_smoke.py), and its source
+compiled for the CPU (csrc/esdf_relax_emulate.cpp) against the plain
+version here, bit for bit.
 """
 
 import dataclasses
@@ -286,3 +288,101 @@ def test_xla_path_ignores_the_schedule(rng):
     a, _, ia = _torch_batch(tt, **BASE)
     b, _, ib = _torch_batch(tt, **dict(BASE, sweep_strides=(8, 4, 2, 1)))
     assert ia == ib and torch.equal(a.channels["esdf"], b.channels["esdf"])
+
+
+# ---------------------------------------------------------------------------
+# The kernels' own source on the CPU (csrc/esdf_relax_emulate.cpp)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("strides", [
+    (8, 4, 2, 1, 1, 1, 1), (8, 4, 2, 1), (4, 2, 1, 1), (1, 4, 2, 1),
+    (2, 2, 1), (2,), (1, 1, 8, 8, 1), (3, 1), (16, 6, 5, 1)])
+def test_emulated_k2_matches_plain(rng, strides):
+    """K2's CUDA source compiled for the CPU against the plain version, bit
+    for bit (tolerance 0: the kernel folds the negative side into a sign
+    and moves the window test to the group's minimum, both exact), with
+    some blocks inactive and the codes of a standalone erosion."""
+    b = 6
+    d, obs, upd = _structured_fields(rng, b)
+    active = np.array([1, 1, 0, 1, 1, 1], bool)
+    td, tobs, tupd, tact = (torch.as_tensor(x)
+                            for x in (d, obs, upd, active))
+    codes = tesdf.stride_codes_standalone(td, tupd, strides)
+    for voxel, maxd in ((VOXEL, 2.0), (0.05, 0.6)):  # 0.6: windows close
+        ref = trelax.relax_plain(td, tobs, tupd, tact, 4, voxel, maxd, 0.001,
+                                 strides=strides, codes=codes)
+        got = torch_parity.relax_emulated(td, tobs, tupd, tact, 4, voxel,
+                                          maxd, 0.001, strides=strides,
+                                          codes=codes)
+        assert not torch.isnan(got).any()  # every voxel of out is written
+        np.testing.assert_array_equal(got.numpy(), ref.numpy())
+        np.testing.assert_array_equal(got.numpy()[2], d[2])
+    assert np.abs(ref.numpy() - d).max() > 0.05
+
+
+def test_schedule_starting_with_a_unit_sweep_matches_pallas_interpret(rng):
+    """A strided schedule whose first entry is a unit sweep (the kernel
+    then packs for a unit sweep first and strides afterwards)."""
+    strides = (1, 4, 2, 1)
+    b = 4
+    d, obs, upd = _structured_fields(rng, b)
+    ref = np.asarray(jrelax.relax_padded(
+        jnp.asarray(d), jnp.asarray(obs, jnp.float32),
+        jnp.asarray(upd, jnp.float32), 4, VOXEL, 2.0, 0.001, interpret=True,
+        strides=strides))
+    td, tobs, tupd = (torch.as_tensor(x) for x in (d, obs, upd))
+    codes = tesdf.stride_codes_standalone(td, tupd, strides)
+    got = trelax.relax(td, tobs, tupd, torch.ones(b, dtype=torch.bool), 4,
+                       VOXEL, 2.0, 0.001, strides=strides, codes=codes)
+    assert got.data_ptr() != td.data_ptr()
+    np.testing.assert_array_equal(td.numpy(), d)  # the input is not written
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("n_active", [0, 1])
+def test_emulated_k2_inactive_blocks_pass_through(rng, n_active):
+    strides = (4, 2, 1)
+    b = 3
+    d, obs, upd = _structured_fields(rng, b)
+    active = np.zeros(b, bool)
+    active[0] = n_active == 1
+    td, tobs, tupd, tact = (torch.as_tensor(x)
+                            for x in (d, obs, upd, active))
+    codes = tesdf.stride_codes_standalone(td, tupd, strides)
+    got = torch_parity.relax_emulated(td, tobs, tupd, tact, 4, VOXEL, 2.0,
+                                      0.001, strides=strides, codes=codes)
+    np.testing.assert_array_equal(td.numpy(), d)
+    np.testing.assert_array_equal(got.numpy()[~active], d[~active])
+    changed = np.abs(got.numpy() - d).reshape(b, -1).max(1) > 0
+    np.testing.assert_array_equal(changed, active)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fraction", [0.0, 0.03, 0.5, 1.0])
+@pytest.mark.parametrize("n", [1, 2, 131, 133, 384, 6144])
+def test_cuda_k2_matches_plain_at_grid_sizes(n, fraction):
+    """K2 against the plain version, bit-equal, below, at and above one
+    wave of CTAs (132 SMs x 2) and at the stress loop's pool."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    strides = (8, 4, 2, 1, 1, 1, 1)
+    g = np.random.default_rng(n * 11 + int(fraction * 100))
+    reps = -(-n // 16)
+    d, obs, upd = (np.concatenate([x] * reps)[:n]
+                   for x in _structured_fields(g, min(n, 16)))
+    d = d * g.uniform(0.5, 1.0, (n, 1, 1, 1)).astype(np.float32)
+    active = g.uniform(size=n) < fraction
+    td, tobs, tupd, tact = (torch.as_tensor(x, device=dev)
+                            for x in (d, obs, upd, active))
+    codes = tesdf.stride_codes_standalone(td, tupd, strides)
+    before = trelax.LAUNCHES, trelax.STRIDED_LAUNCHES
+    got = trelax.relax(td, tobs, tupd, tact, 4, 0.05, 2.0, 0.001,
+                       strides=strides, codes=codes)
+    torch.cuda.synchronize()
+    assert (trelax.LAUNCHES, trelax.STRIDED_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    ref = trelax.relax_plain(td, tobs, tupd, tact, 4, 0.05, 2.0, 0.001,
+                             strides=strides, codes=codes)
+    assert torch.equal(got, ref)

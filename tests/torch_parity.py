@@ -75,3 +75,73 @@ def assert_layers_equal(ref: dict, got: dict, atol: float = 0.0,
         else:
             np.testing.assert_allclose(b, a, atol=atol, rtol=rtol,
                                        err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA relaxation kernels' source, run on the CPU
+# ---------------------------------------------------------------------------
+
+_EMULATION = {}
+
+
+def relax_emulation():
+    """The ctypes function ``esdf_relax_emulate`` of the port's
+    csrc/esdf_relax_emulate.cpp (the kernels' device functions compiled as
+    plain C++ and run thread by thread), built with g++ into a temporary
+    directory once per process; skips where there is no g++."""
+    import ctypes
+    import shutil
+    import subprocess
+    import tempfile
+    from pathlib import Path
+
+    from voxblox_tpu_torch.ops import esdf_relax as trelax
+
+    if "fn" not in _EMULATION:
+        gxx = shutil.which("g++")
+        if gxx is None:
+            pytest.skip("needs g++ to compile the kernels' source for the CPU")
+        src = Path(trelax.__file__).resolve().parents[1] / "csrc"
+        out = Path(tempfile.mkdtemp(prefix="esdf_relax_emulate_")) / "lib.so"
+        subprocess.run(
+            [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
+             "-fPIC", "-o", str(out), str(src / "esdf_relax_emulate.cpp")],
+            check=True, capture_output=True, text=True)
+        fn = ctypes.CDLL(str(out)).esdf_relax_emulate
+        fn.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int, ctypes.POINTER(trelax._Schedule), ctypes.c_int,
+            ctypes.c_float, ctypes.c_float]
+        fn.restype = ctypes.c_int
+        _EMULATION["fn"] = fn
+    return _EMULATION["fn"]
+
+
+def relax_emulated(d, obs, upd, active, inner_sweeps, voxel_size,
+                   max_distance, min_diff, strides=None, codes=None):
+    """``relax`` through the emulated kernels: the arguments of
+    ``voxblox_tpu_torch.ops.esdf_relax.relax`` (CPU tensors)."""
+    from voxblox_tpu_torch.ops import esdf_relax as trelax
+
+    fn = relax_emulation()
+    schedule = trelax._schedule(inner_sweeps, strides)
+    strided = any(k > 1 for k in schedule)
+    if strided:
+        arg = trelax._schedule_arg(schedule, voxel_size)
+    else:  # what the K1 entry point builds: n sweeps with step[0]
+        arg = trelax._Schedule()
+        arg.n = len(schedule)
+        for g, s in enumerate(trelax.step_constants(voxel_size)):
+            arg.step[0][g] = s
+    d = d.contiguous()
+    out = torch.full_like(d, float("nan"))  # every voxel must be written
+    u8 = [x.contiguous().view(torch.uint8) for x in (obs, upd, active)]
+    cp, cn = (codes if strided else (None, None))
+    import ctypes
+
+    rc = fn(d.data_ptr(), u8[0].data_ptr(), u8[1].data_ptr(),
+            cp.data_ptr() if strided else None,
+            cn.data_ptr() if strided else None, u8[2].data_ptr(),
+            out.data_ptr(), d.shape[0], ctypes.byref(arg), int(strided),
+            float(max_distance), float(min_diff))
+    assert rc == 0, rc
+    return out

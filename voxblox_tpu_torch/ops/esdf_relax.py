@@ -17,7 +17,9 @@ launches a kernel (building it with nvcc into ``voxblox_tpu_torch/
 _build/`` at first use) and counts the launch in ``LAUNCHES`` (and in
 ``STRIDED_LAUNCHES`` when the schedule has a stride > 1); on a CPU tensor
 it runs ``relax_plain``; anything else raises. There is no fallback from
-one to the other.
+one to the other. The kernels read ``d`` and write every voxel of a fresh
+output tensor (skipped blocks are copied through on the card), so the
+wrapper makes no copy of its own.
 """
 
 from __future__ import annotations
@@ -205,20 +207,38 @@ def build() -> Path:
 
 
 def _lib():
+    """The built library, bound. At first use both kernels are allowed the
+    tile's dynamic shared memory (93,312 B, above the 48 KB a kernel gets
+    unasked); a card that refuses raises here, once."""
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         fn = lib.esdf_relax_k1
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
             ctypes.c_float] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = lib.esdf_relax_k2
-        fn.argtypes = [ctypes.c_void_p] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [
             ctypes.c_int, ctypes.POINTER(_Schedule), ctypes.c_float,
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.esdf_relax_init.argtypes = []
+        lib.esdf_relax_init.restype = ctypes.c_int
+        lib.esdf_relax_ctas_per_sm.argtypes = [ctypes.c_int]
+        lib.esdf_relax_ctas_per_sm.restype = ctypes.c_int
+        err = lib.esdf_relax_init()
+        if err != 0:
+            raise RuntimeError(
+                "esdf_relax: the card refused the kernels' dynamic shared "
+                f"memory (cudaFuncSetAttribute: cudaError {err})")
         _LIB = lib
     return _LIB
+
+
+def ctas_per_sm(strided: bool) -> int:
+    """CTAs of K1 (or K2, ``strided``) that fit on an SM of the current
+    card (the CUDA occupancy calculator's answer; for the records)."""
+    return int(_lib().esdf_relax_ctas_per_sm(int(strided)))
 
 
 class _Schedule(ctypes.Structure):
@@ -274,8 +294,9 @@ def relax(d, obs, upd, active, inner_sweeps: int, voxel_size: float,
     """One launch of relaxations on padded blocks: ``inner_sweeps`` unit
     sweeps, or one sweep per entry of ``strides`` when given (a schedule
     with a stride > 1 requires ``codes`` = (code_pos, code_neg), uint8
-    levels). Returns the updated copy of ``d`` (only interior voxels of
-    active blocks change). A unit schedule launches K1, any other K2."""
+    levels). Returns a new tensor, the updated copy of ``d`` (only interior
+    voxels of active blocks change); ``d`` is not written. A unit schedule
+    launches K1, any other K2."""
     global LAUNCHES, STRIDED_LAUNCHES
     schedule = _schedule(inner_sweeps, strides)
     strided = any(k > 1 for k in schedule)
@@ -295,24 +316,26 @@ def relax(d, obs, upd, active, inner_sweeps: int, voxel_size: float,
                            codes=codes)
     if d.device.type != "cuda":
         raise ValueError(f"relax runs on cuda or cpu, not {d.device}")
-    out = d.clone()
+    # The kernel writes every voxel of ``out`` and only reads ``d``.
+    out = torch.empty_like(d)
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream().cuda_stream
         if strided:
             name = "esdf_relax_k2"
             arg = _schedule_arg(schedule, voxel_size)
             err = _lib().esdf_relax_k2(
-                out.data_ptr(), obs.data_ptr(), upd.data_ptr(),
+                d.data_ptr(), obs.data_ptr(), upd.data_ptr(),
                 codes[0].data_ptr(), codes[1].data_ptr(), active.data_ptr(),
-                d.shape[0], ctypes.byref(arg), float(max_distance),
-                float(min_diff), stream)
+                out.data_ptr(), d.shape[0], ctypes.byref(arg),
+                float(max_distance), float(min_diff), stream)
         else:
             name = "esdf_relax_k1"
             s1, s2, s3 = step_constants(voxel_size)
             err = _lib().esdf_relax_k1(
-                out.data_ptr(), obs.data_ptr(), upd.data_ptr(),
-                active.data_ptr(), d.shape[0], len(schedule), s1, s2, s3,
-                float(max_distance), float(min_diff), stream)
+                d.data_ptr(), obs.data_ptr(), upd.data_ptr(),
+                active.data_ptr(), out.data_ptr(), d.shape[0],
+                len(schedule), s1, s2, s3, float(max_distance),
+                float(min_diff), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     LAUNCHES += 1
