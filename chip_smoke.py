@@ -1,9 +1,12 @@
 """GPU smoke run of the PyTorch/CUDA port: builds the hand-written kernels,
-holds each to its plain version, and drives three paths on one CUDA card
-at the full size of the JAX package's own benchmarks: the online mapping
-step at 5 cm (bench.py's online loop), the batch ESDF rebuild with the
-unit and the strided schedule (bench.py's ESDF section), and the 2 cm
-stress loop with a mesh update every scan (benchmarks/stress_bench.py).
+holds each to its plain version, and drives the port's paths on one CUDA
+card at the full size of the JAX package's own benchmarks: the online
+mapping step at 5 cm (bench.py's online loop), the batch ESDF rebuild
+with the unit and the strided schedule (bench.py's ESDF section), the
+2 cm stress loop with a mesh update every scan (benchmarks/
+stress_bench.py), the batched TSDF throughput path (bench.py section 1),
+the velodyne street map (bench.py's velodyne section), the three
+ray-casting integrators, the full-Euclidean ESDF and the map queries.
 
     python3 chip_smoke.py             # the check (one card, a few minutes)
     python3 chip_smoke.py --profile   # + torch.profiler windows
@@ -27,12 +30,29 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
              fixpoints compared, both rebuilds replayed with the plain
              relaxation, the stride-gate statistics
   7 kernel   K2 against its plain version at the batch rebuild's bucket
-  8 stress   2 cm, 6144-block pool: warm circle with undersized budgets,
+  8 euclid   full-Euclidean batch ESDF rebuild of the phase-3 map (never
+             longer than the quasi-Euclidean field by more than
+             min_diff_m); a point source in 8 blocks of 16^3 against sqrt
+             distances (rtol 0.035) and against the port on the CPU
+  9 queries  TsdfMap/EsdfMap queries (distance, distance + gradient,
+             adaptive) at 1,000,000 points in the phase-3 maps' bounds,
+             against the same queries on CPU copies of the layers
+ 10 stress   2 cm, 6144-block pool: warm circle with undersized budgets,
              8 steps with mesh updates, 16 timed steps of integrate +
              incremental ESDF + mesh update; the exported mesh against
              the analytic surface; a batch ESDF rebuild of the 2 cm map
              over the whole pool, kernel against plain relaxation; K1
              timed on the inputs of that rebuild's first sweep
+ 11 batch    bench.py section 1: the 32 orbit scans in one K=32 dispatch
+             of integrate_organized_projective_batch (budgets 192/1920/
+             256), a warm-up epoch and timed rounds; against 32
+             sequential single-scan calls
+ 12 velodyne bench.py's velodyne section: 2048x64 spinning-lidar scans of
+             a street, 0.2 m voxels, 50 m rays, K=16 batches; against 16
+             sequential single-scan calls and the scatter image builder
+ 13 raycast  TsdfServer(method=fast/merged/simple) on the orbit's flat
+             640x480 clouds against the analytic scene; at 160x120 the
+             card's maps against the port's on the CPU
 Prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -63,7 +83,10 @@ from voxblox_tpu_torch.core.config import (  # noqa: E402
 from voxblox_tpu_torch.ops import mesh as mesh_ops  # noqa: E402
 from voxblox_tpu_torch.ops import esdf as esdf_ops  # noqa: E402
 from voxblox_tpu_torch.ops import esdf_relax  # noqa: E402
-from voxblox_tpu_torch.server.mapper import EsdfServer  # noqa: E402
+from voxblox_tpu_torch.ops import projective as projective_ops  # noqa: E402
+from voxblox_tpu_torch.models import maps  # noqa: E402
+from voxblox_tpu_torch.server.mapper import (  # noqa: E402
+    EsdfServer, TsdfServer)
 from voxblox_tpu_torch.sim import world as sw  # noqa: E402
 
 # H100 SXM peaks: HBM bytes/s (NVIDIA data sheet) and the f32 instruction
@@ -173,7 +196,7 @@ def make_server(dev, intr, relax_impl):
         map_config=MapConfig(voxel_size=VOXEL, max_blocks=MAX_BLOCKS),
         integrator_config=TsdfIntegratorConfig(
             default_truncation_distance=4 * VOXEL, max_ray_length_m=5.0),
-        esdf_config=ecfg, projective_resolution=VIRT,
+        esdf_config=ecfg, method="projective", projective_resolution=VIRT,
         projective_fov_deg=FOV_DEG, projective_intrinsics=intr,
         projective_pool=RES[0] // VIRT[0],
         projective_max_visible_blocks=256, projective_max_mixed_slabs=2048,
@@ -212,8 +235,9 @@ def run_loop(srv, scans, on_window_start=None):
                 host_syncs_per_scan=syncs / TIMED, blocks=n_blocks)
 
 
-def profile_window(srv, step, path, n=4):
-    """torch.profiler over ``n`` calls of ``step(i)``; per-scan device busy
+def profile_window(srv, step, path, n=4, stack=True, keep=True):
+    """torch.profiler over ``n`` calls of ``step(i)`` (a server's deferred
+    overflow checks, if ``srv``, resolved after); per-call device busy
     time, the busy share of the traced window, kernel time inside the
     projective_integrate / esdf_incremental / mesh_update spans, K1's
     time, kernel launches and stream synchronizations (from the exported
@@ -222,15 +246,18 @@ def profile_window(srv, step, path, n=4):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 with_stack=True) as prof:
+                 with_stack=stack) as prof:
         for i in range(n):
             step(i)
         torch.cuda.synchronize()
-    srv.check_overflow()
+    if srv is not None:
+        srv.check_overflow()
     os.makedirs("chiprun_out", exist_ok=True)
     prof.export_chrome_trace(path)
     with open(path) as f:
         ev = json.load(f)["traceEvents"]
+    if not keep:  # chiprun_out/ has a size limit; the summary is enough
+        os.remove(path)
     kern = [e for e in ev if e.get("cat") == "kernel"]
     t0 = min(e["ts"] for e in kern)
     t1 = max(e["ts"] + e["dur"] for e in kern)
@@ -595,7 +622,7 @@ def make_stress_server(dev, intr):
         esdf_config=ecfg,
         mesh_config=MeshIntegratorConfig(march_cube_budget=16384,
                                          update_bucket=192),
-        projective_resolution=VIRT, projective_fov_deg=FOV_DEG,
+        method="projective", projective_resolution=VIRT, projective_fov_deg=FOV_DEG,
         projective_intrinsics=intr, projective_pool=RES[0] // VIRT[0],
         overflow_check_interval=8, device=dev, **STRESS_BUDGETS)
 
@@ -760,6 +787,468 @@ def stress_rebuild_check(srv, dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 8-13: full-Euclidean ESDF, queries, batched and spherical TSDF,
+# ray casting
+# ---------------------------------------------------------------------------
+
+
+def tsdf_observed(layer):
+    """bool [max_blocks, vpb]: weight > 1e-6 on active rows (the observed
+    test of voxblox_tpu/utils/evaluation.py)."""
+    return (layer.channels["weight"] > 1e-6) & layer.active_mask()[:, None]
+
+
+def layers_rmse(gt, test):
+    """(rmse, voxels) of test's TSDF against gt's over co-located voxels
+    observed in both (evaluate_layers_rmse)."""
+    slot = vlayer.lookup_blocks(test, gt.block_ijk)
+    pair = gt.active_mask() & (slot >= 0)
+    safe = torch.where(pair, slot, 0).to(torch.int64)
+    both = (tsdf_observed(gt) & (test.channels["weight"][safe] > 1e-6)
+            & pair[:, None])
+    err = (test.channels["tsdf"][safe] - gt.channels["tsdf"])[both]
+    return float(err.pow(2).mean().sqrt()), int(both.sum())
+
+
+def batch_vs_sequential(bat, seq, what):
+    """The JAX suite's batch-against-sequential contract
+    (tests/test_projective.py:210-242): rmse < 2e-3 over voxels observed
+    in both, observed counts within 1%."""
+    rmse, n = layers_rmse(seq, bat)
+    n_s, n_b = int(tsdf_observed(seq).sum()), int(tsdf_observed(bat).sum())
+    res = dict(rmse=rmse, compared_voxels=n, observed_sequential=n_s,
+               observed_batch=n_b)
+    assert n > MIN_OBSERVED // 10, (what, res)
+    assert rmse < 2e-3, (what, res)
+    assert abs(n_s - n_b) <= 0.01 * n_s, (what, res)
+    return res
+
+
+def cpu_copy(layer):
+    return vlayer.layer_from_numpy(vlayer.layer_to_numpy(layer), "cpu")
+
+
+def full_euclid_phase(tsdf_layer, dev):
+    """A batch ESDF rebuild with full_euclidean_distance=True of the
+    phase-3 map (the plain sweep with parent vectors: the JAX package
+    never takes its kernel there), against the quasi-Euclidean rebuild,
+    and a point source against sqrt distances and the port on the CPU."""
+    base = dict(max_distance_m=2.0, default_distance_m=2.0,
+                min_distance_m=2 * VOXEL, max_active_blocks=1024,
+                use_pallas_kernel=True, inner_sweeps=4)
+    cfg_full = EsdfIntegratorConfig(**base, full_euclidean_distance=True)
+    cfg_quasi = EsdfIntegratorConfig(**base)
+    saved_buckets = dict(esdf_ops._BUCKET_CACHE)
+
+    def rebuild(cfg):
+        esdf_ops._BUCKET_CACHE.clear()
+        fresh = vlayer.make_layer("esdf", VOXEL, vps=16,
+                                  max_blocks=MAX_BLOCKS, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e, ovf, r_ovf, it = esdf_ops.update_from_tsdf_batch_deferred(
+            fresh, tsdf_layer, cfg)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        assert not any(_runtime.host_bools([ovf, r_ovf]))
+        return e, it, dt
+
+    reset_counts()
+    times = []
+    for _ in range(3):
+        e_full, it_full, dt = rebuild(cfg_full)
+        times.append(dt)
+    assert esdf_relax.LAUNCHES == 0, "the full-Euclidean sweep launched K1"
+    e_quasi, _, _ = rebuild(cfg_quasi)
+    esdf_ops._BUCKET_CACHE.clear()
+    esdf_ops._BUCKET_CACHE.update(saved_buckets)
+    f = e_full.channels["esdf_flags"]
+    assert torch.equal(f, e_quasi.channels["esdf_flags"])
+    m = ((f & 1) != 0) & ((f & 2) == 0)
+    full = e_full.channels["esdf"][m].abs()
+    quasi = e_quasi.channels["esdf"][m].abs()
+    assert torch.isfinite(full).all()
+    # The chamfer overestimates; both sweeps drop changes below min_diff_m,
+    # so either field may stop that far from its fixpoint.
+    excess = float((full - quasi).max())
+    shorter = int((full < quasi - cfg_full.min_diff_m).sum())
+    assert excess <= cfg_full.min_diff_m, excess
+    assert shorter > 0.01 * int(m.sum()), (shorter, int(m.sum()))
+    n_parent = int((e_full.channels["parent"] != 0).any(1).sum())
+    assert n_parent > 0
+
+    # Point source: 8 blocks of 16^3 1 m voxels, one zero seed.
+    t = vlayer.make_layer("tsdf", 1.0, vps=16, max_blocks=64, device=dev)
+    blocks = torch.tensor(np.stack(np.meshgrid([-1, 0], [-1, 0], [-1, 0],
+                                               indexing="ij"), -1)
+                          .reshape(-1, 3), dtype=torch.int32, device=dev)
+    t, _ = vlayer.allocate_blocks(t, blocks, torch.ones(8, dtype=torch.bool,
+                                                        device=dev))
+    t.channels["weight"].copy_(torch.where(
+        t.active_mask()[:, None], 1.0, 0.0).expand_as(t.channels["weight"]))
+    t.channels["tsdf"].fill_(100.0)
+    vlayer.set_voxels(t, "tsdf", torch.zeros((1, 3), dtype=torch.int32,
+                                             device=dev),
+                      torch.zeros(1, device=dev))
+    pcfg = EsdfIntegratorConfig(max_distance_m=20.0, default_distance_m=20.0,
+                                min_distance_m=0.2, min_diff_m=1e-4,
+                                full_euclidean_distance=True)
+    point = {}
+    for where, layer in (("cuda", t), ("cpu", cpu_copy(t))):
+        e, ovf, _ = esdf_ops.update_from_tsdf_batch(
+            vlayer.make_layer("esdf", 1.0, vps=16, max_blocks=64,
+                              device=layer.device), layer, pcfg)
+        assert not _runtime.host_bool(ovf)
+        point[where] = e
+    q = np.array([[1, 0, 0], [1, 1, 0], [3, 2, 1], [-4, -4, -4], [5, 0, 0],
+                  [4, 3, 0], [-15, 7, -9], [12, -3, 5]], np.int32)
+    got, found = vlayer.get_voxels(point["cuda"], "esdf",
+                                   torch.as_tensor(q, device=dev))
+    assert bool(found.all())
+    want = np.linalg.norm(q.astype(np.float64), axis=1)
+    rel = np.abs(got.cpu().numpy() - want) / want
+    assert rel.max() <= 0.035, rel
+    err_cpu = float((point["cuda"].channels["esdf"].cpu()
+                     - point["cpu"].channels["esdf"]).abs().max())
+    assert err_cpu <= 1e-5, err_cpu
+    assert torch.equal(point["cuda"].channels["parent"].cpu(),
+                       point["cpu"].channels["parent"])
+    res = dict(ms_per_rebuild=statistics.median(times), rebuild_ms=times,
+               outer_iters=it_full, observed_non_fixed=int(m.sum()),
+               shorter_than_quasi=shorter, max_excess_over_quasi=excess,
+               blocks_with_parents=n_parent,
+               point_source_max_rel_err=float(rel.max()),
+               point_source_card_vs_cpu_max_abs=err_cpu)
+    log("full-Euclidean esdf: " + json.dumps(res))
+    return res
+
+
+QUERIES = 1_000_000
+QUERIES_CPU = 200_000  # the prefix also run on CPU copies of the layers
+
+
+def queries_phase(tsdf_layer, esdf_layer, dev):
+    """TsdfMap / EsdfMap queries at a million seeded points in the maps'
+    bounds, timed on the card, and against CPU copies of the layers."""
+    mc = MapConfig(voxel_size=VOXEL, max_blocks=MAX_BLOCKS)
+    act = esdf_layer.active_mask()
+    bijk = esdf_layer.block_ijk[act].to(torch.float32)
+    lo = bijk.amin(0) * esdf_layer.block_size
+    hi = (bijk.amax(0) + 1) * esdf_layer.block_size
+    g = torch.Generator(device="cpu").manual_seed(7)
+    pts = (torch.rand((QUERIES, 3), generator=g).to(dev) * (hi - lo) + lo)
+    maps_on = {"cuda": (maps.TsdfMap(tsdf_layer, mc),
+                        maps.EsdfMap(esdf_layer, mc))}
+    maps_on["cpu"] = (maps.TsdfMap(cpu_copy(tsdf_layer), mc),
+                      maps.EsdfMap(cpu_copy(esdf_layer), mc))
+    calls = {
+        "tsdf_distance": lambda m, p: m[0].get_distance_at_position(p),
+        "esdf_distance": lambda m, p: m[1].get_distance_at_position(p),
+        "esdf_distance_and_gradient":
+            lambda m, p: m[1].get_distance_and_gradient_at_position(p),
+        "esdf_adaptive_distance_and_gradient":
+            lambda m, p: m[1].get_distance_and_gradient_at_position(
+                p, adaptive=True),
+    }
+    res = {}
+    for name, fn in calls.items():
+        times = []
+        for i in range(3):
+            p = pts + 1e-6 * i  # varied inputs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(maps_on["cuda"], p)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ref = fn(maps_on["cpu"], pts[:QUERIES_CPU].cpu())
+        got = fn(maps_on["cuda"], pts[:QUERIES_CPU])
+        valid = got[-1]
+        assert torch.equal(valid.cpu(), ref[-1]), name
+        err = 0.0
+        for a, b in zip(got[:-1], ref[:-1]):
+            a = a.cpu()
+            ok = valid.cpu()
+            assert torch.isfinite(a[ok]).all(), name
+            err = max(err, float((a - b)[ok].abs().max()))
+        assert err <= 1e-5, (name, err)
+        share = float(out[-1].float().mean())
+        assert share > 0.01, (name, share)
+        res[name] = dict(ms_per_million=statistics.median(times)
+                         * 1e6 / QUERIES, times_ms=times, valid_share=share,
+                         card_vs_cpu_max_abs=err)
+    log("queries: " + json.dumps(res))
+    return res
+
+
+def tsdf_batch_phase(scans, intr, dev, profile=False):
+    """bench.py section 1 (:102-156): K=32 organized scans per dispatch,
+    budgets 192/1920/256, a warm-up epoch then timed rounds; the first
+    batch against 32 sequential single-scan calls."""
+    cfg = TsdfIntegratorConfig(default_truncation_distance=4 * VOXEL,
+                               max_ray_length_m=5.0)
+    Rs = torch.stack([s[0] for s in scans])
+    ts = torch.stack([s[1] for s in scans])
+    pts = torch.stack([s[2] for s in scans])
+    cols = torch.stack([s[3] for s in scans])
+    budgets = dict(max_visible_blocks=192, max_mixed_slabs=1920,
+                   max_free_slabs=256)
+
+    def epoch(layer):
+        return projective_ops.integrate_organized_projective_batch(
+            layer, Rs, ts, pts, cols, cfg, intrinsics=intr,
+            pool=RES[0] // VIRT[0], **budgets)
+
+    def fresh():
+        return vlayer.make_layer("tsdf", VOXEL, vps=16, max_blocks=MAX_BLOCKS,
+                                 device=dev)
+
+    layer, ovf = epoch(fresh())
+    first = vlayer.clone_layer(layer)
+    flags = [ovf]
+    rounds = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        layer, ovf = epoch(layer)
+        flags.append(ovf)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    overflow = any(_runtime.host_bools(flags))
+    n_scans = rounds * len(scans)
+    seq = fresh()
+    seq_flags = []
+    for R, t, p, c in scans:
+        seq, p_o, b_o = projective_ops.integrate_organized_projective(
+            seq, (R, t), p, c, cfg, intrinsics=intr, pool=RES[0] // VIRT[0])
+        seq_flags += [p_o, b_o]
+    assert not any(_runtime.host_bools(seq_flags))
+    if profile:
+        holder = [layer]
+
+        def step(i):
+            holder[0], _ = epoch(holder[0])
+
+        prof = profile_window(None, step, "chiprun_out/tsdf_batch_trace.json",
+                              n=1, stack=False, keep=False)
+        prof["device_busy_ms_per_scan"] = (prof["device_busy_ms_per_scan"]
+                                           / len(scans))
+        log("tsdf batch profile (one K=32 call): " + json.dumps(prof))
+    res = dict(ms_per_scan=dt / n_scans * 1e3,
+               points_per_s=n_scans * RES[0] * RES[1] / dt,
+               scans_timed=n_scans, K=len(scans),
+               blocks=_runtime.host_int(layer.num_blocks), overflow=overflow,
+               vs_sequential=batch_vs_sequential(first, seq, "tsdf batch"))
+    log(f"tsdf batch: {res['ms_per_scan']:.3f} ms/scan, "
+        f"{res['points_per_s'] / 1e6:.1f} M points/s, blocks "
+        f"{res['blocks']}, overflow={overflow}")
+    log("tsdf batch: " + json.dumps(res))
+    assert not overflow, "the batch overflowed its budgets"
+    return res
+
+
+def velodyne_phase(dev, profile=False):
+    """bench.py's velodyne section (:347-426): a street (two walls, ground,
+    12 cylinders from RandomState(0)), 2048x64 spinning-lidar scans, 0.2 m
+    voxels, 50 m rays, carving off, a 16384-block pool (the direct
+    accumulator), K=16 per call, four timed groups, the first dropped."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    w = sw.SimulationWorld()
+    w.add_ground_level(0.0)
+    w.add_plane((0.0, 12.0, 5.0), (0.0, -1.0, 0.0), color=(180, 160, 140))
+    w.add_plane((0.0, -12.0, 5.0), (0.0, 1.0, 0.0), color=(140, 160, 180))
+    rng = np.random.RandomState(0)
+    for _ in range(12):
+        x = rng.uniform(-40, 40)
+        y = rng.uniform(-9, 9)
+        w.add_cylinder((x, y, 2.5), rng.uniform(0.2, 1.0), 5.0,
+                       color=(30, 200, 30))
+    objs = w.freeze(dev)
+    reso, voxel, K = (2048, 64), 0.2, 16
+    cfg = TsdfIntegratorConfig(default_truncation_distance=4 * voxel,
+                               max_ray_length_m=50.0,
+                               voxel_carving_enabled=False)
+    eye = torch.eye(3, device=dev)
+    ts = torch.tensor([[-20.0 + 2.5 * i, 0.0, 2.0] for i in range(K)],
+                      device=dev)
+    scans = [sw.spherical_pointcloud_from_transform(
+        objs, (eye, ts[i]), reso, 3.0, -25.0, 50.0) for i in range(K)]
+    pts = torch.stack([s[0] for s in scans])
+    cols = torch.stack([s[1] for s in scans])
+    Rs = eye.expand(K, 3, 3)
+    lidar = dict(resolution=reso, fov_up_deg=3.0, fov_down_deg=-25.0)
+
+    def run(layer, i):
+        return projective_ops.integrate_pointcloud_projective_batch(
+            layer, Rs, ts + i * 1e-5, pts, cols, cfg,
+            kind="spherical_organized", max_visible_blocks=2944,
+            max_mixed_slabs=15360, max_free_slabs=384, **lidar)
+
+    def fresh():
+        return vlayer.make_layer("tsdf", voxel, vps=16, max_blocks=16384,
+                                 device=dev)
+
+    layer, ovf = run(fresh(), 0)
+    first = vlayer.clone_layer(layer)
+    flags, times = [ovf], []
+    for g in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        layer, ovf = run(layer, g + 1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / K * 1e3)
+        flags.append(ovf)
+    overflow = any(_runtime.host_bools(flags))
+    peak = torch.cuda.max_memory_allocated()
+    if profile:
+        holder = [layer]
+
+        def step(i):
+            holder[0], _ = run(holder[0], 10 + i)
+
+        prof = profile_window(None, step, "chiprun_out/velodyne_trace.json",
+                              n=1, stack=False, keep=False)
+        log("velodyne profile (one K=16 call): " + json.dumps(prof))
+    seq = fresh()
+    seq_flags = []
+    for i in range(K):
+        seq, p_o, b_o = projective_ops.integrate_pointcloud_projective(
+            seq, (eye, ts[i]), pts[i], cols[i], cfg,
+            kind="spherical_organized", max_visible_blocks=2944, **lidar)
+        seq_flags += [p_o, b_o]
+    assert not any(_runtime.host_bools(seq_flags))
+    a = projective_ops.build_spherical_range_image(pts[0], cols[0], reso,
+                                                   3.0, -25.0)
+    b = projective_ops.build_spherical_range_image_organized(
+        pts[0], cols[0], reso, 3.0, -25.0)
+    fin = torch.isfinite(b.rng)
+    assert torch.equal(torch.isfinite(a.rng), fin)
+    img_err = float(((a.rng - b.rng)[fin]).abs().max())
+    assert img_err <= 1e-6 * 50.0, img_err
+    assert torch.equal(a.color, b.color) and torch.equal(a.params, b.params)
+    warm = sorted(times[1:])
+    res = dict(ms_per_scan=warm[len(warm) // 2], group_ms_per_scan=times,
+               blocks=_runtime.host_int(layer.num_blocks), overflow=overflow,
+               max_memory_allocated=peak, returns_per_scan=int(
+                   (pts[0].norm(dim=-1) > 1e-3).sum()),
+               scatter_vs_organized_image_max_abs=img_err,
+               vs_sequential=batch_vs_sequential(first, seq, "velodyne"))
+    log(f"velodyne: {res['ms_per_scan']:.2f} ms/scan, blocks "
+        f"{res['blocks']}, overflow={overflow}, peak {peak / 2**30:.2f} GiB")
+    log("velodyne: " + json.dumps(res))
+    assert not overflow, "the velodyne batch overflowed its budgets"
+    return res
+
+
+RAYCAST_SCANS = {"fast": (2, 12), "merged": (1, 4), "simple": (1, 4)}
+
+
+def raycast_phase(scans, dev, profile=False):
+    """TsdfServer(method=...) on the orbit's flat 640x480 clouds (307,200
+    points, 5 m rays): ms/scan after warm-up scans, the map against the
+    analytic scene (tests/test_tsdf_integration.py:90-91 on every observed
+    voxel within truncation), then 2 scans at 160x120 on the card against
+    the same run of the port on the CPU."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trunc = 4 * VOXEL
+    tcfg = TsdfIntegratorConfig(default_truncation_distance=trunc,
+                                max_ray_length_m=5.0)
+    w = sw.SimulationWorld()
+    w.add_cylinder((0.0, 0.0, 2.0), 2.0, 4.0, color=(0, 255, 0))
+    w.add_ground_level(0.0)
+    objs = w.freeze(dev)
+    flat = [(s[0], s[1], s[2].reshape(-1, 3), s[3].reshape(-1, 3))
+            for s in scans]
+
+    def server(method, device):
+        return TsdfServer(map_config=MapConfig(voxel_size=VOXEL,
+                                               max_blocks=MAX_BLOCKS),
+                          integrator_config=tcfg, method=method,
+                          device=device)
+
+    res = {}
+    for method, (n_warm, n_timed) in RAYCAST_SCANS.items():
+        srv = server(method, dev)
+        for s in flat[:n_warm]:
+            srv.insert_pointcloud(s[:2], *s[2:])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in flat[n_warm:n_warm + n_timed]:
+            srv.insert_pointcloud(s[:2], *s[2:])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n_timed * 1e3
+        srv.check_overflow()
+        if profile and method == "fast":
+            nxt = n_warm + n_timed
+            prof = profile_window(
+                srv, lambda i: srv.insert_pointcloud(
+                    flat[nxt + i][:2], *flat[nxt + i][2:]),
+                "chiprun_out/raycast_fast_trace.json", n=2, stack=False,
+                keep=False)
+            log("raycast fast profile: " + json.dumps(prof))
+        layer = srv.layer
+        obs = tsdf_observed(layer)
+        rows, vox = torch.nonzero(obs, as_tuple=True)
+        lin = vox.to(torch.int32)
+        v = layer.vps
+        local = torch.stack([lin % v, (lin // v) % v, lin // (v * v)], -1)
+        centres = ((layer.block_ijk[rows] * v + local).to(torch.float32)
+                   + 0.5) * VOXEL
+        gt, _ = sw.distance_to_point(objs, centres, trunc)
+        gt = torch.clamp(gt, min=-trunc)
+        d = layer.channels["tsdf"][rows, vox]
+        keep = d >= -trunc + 1e-6  # kIgnoreErrorBehindTestSurface
+        err = (d - gt)[keep]
+        rmse = float(err.pow(2).mean().sqrt())
+        max_err = float(err.abs().max())
+        res[method] = dict(ms_per_scan=ms, scans_timed=n_timed,
+                           blocks=_runtime.host_int(layer.num_blocks),
+                           observed_voxels=int(obs.sum()),
+                           evaluated_voxels=int(keep.sum()), rmse=rmse,
+                           max_err=max_err)
+        log(f"raycast {method}: {ms:.1f} ms/scan, rmse {rmse:.4f} m, "
+            f"max {max_err:.3f} m over {int(keep.sum())} voxels")
+        assert int(keep.sum()) > MIN_OBSERVED // 4, (method, res[method])
+        assert rmse < 2 * VOXEL and max_err < 4 * trunc + 1e-6, res[method]
+        del srv
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+
+    # The card against the port on the CPU, 2 scans at 160x120.
+    small = []
+    for R, t, _, _ in scans[:2]:
+        p, c, _, _ = sw.organized_pointcloud_from_transform(
+            objs, (R, t), (160, 120), np.deg2rad(FOV_DEG), 8.0)
+        small.append((R, t, p.reshape(-1, 3), c.reshape(-1, 3)))
+    for method in RAYCAST_SCANS:
+        out = []
+        for device in (dev, torch.device("cpu")):
+            srv = server(method, device)
+            for R, t, p, c in small:
+                srv.insert_pointcloud((R.to(device), t.to(device)),
+                                      p.to(device), c.to(device))
+            srv.check_overflow()
+            out.append(vlayer.layer_to_numpy(srv.layer))
+        a, b = out
+        for k in ("num_blocks", "block_ijk", "block_flags"):
+            assert np.array_equal(a[k], b[k]), (method, k)
+        wa, wb = a["channel/weight"], b["channel/weight"]
+        da, db = a["channel/tsdf"], b["channel/tsdf"]
+        observed = int((wb > 0).sum())
+        equal = int(((wa == wb) & (da == db) & (wb > 0)).sum())
+        off = int(((np.abs(wa - wb) > 1e-5 + 1e-5 * wb)
+                   | (np.abs(da - db) > 1e-5)).sum())
+        cmp = dict(observed_voxels=observed, bit_equal_voxels=equal,
+                   voxels_off_by_more_than_1e5=off)
+        res[method]["card_vs_cpu_160x120"] = cmp
+        log(f"raycast {method} card vs cpu: " + json.dumps(cmp))
+        assert observed > MIN_OBSERVED // 10, cmp
+        assert off <= 2e-3 * observed, cmp
+    log("raycast: " + json.dumps(res))
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
@@ -879,14 +1368,33 @@ def main():
             out["profile"]["device_busy_ms_per_scan"] / win["ms_per_scan"])
         log("profile: " + json.dumps(out["profile"]))
         done("profile online")
+
+    # 8. Full-Euclidean batch ESDF of the phase-3 map.
+    out["full_euclid"] = full_euclid_phase(srv.layer, dev)
+    done("full-Euclidean esdf")
+
+    # 9. Map queries on the phase-3 maps.
+    out["queries"] = queries_phase(srv.layer, srv.esdf_layer, dev)
+    done("queries")
     del srv
     torch.cuda.empty_cache()
 
-    # 8. The 2 cm stress loop, with a mesh update every scan.
+    # 10. The 2 cm stress loop, with a mesh update every scan.
     out["stress"] = stress_phase(scans, intr, dev, args.profile)
     done("stress")
     k1_other.append(out["stress"]["esdf_rebuild"]["k1_on_map_data"])
     out["kernel_other_shapes"] = k1_other
+    torch.cuda.empty_cache()
+
+    # 11-13. Batched TSDF, the velodyne street map, ray casting.
+    out["tsdf_batch"] = tsdf_batch_phase(scans, intr, dev, args.profile)
+    done("tsdf batch")
+    torch.cuda.empty_cache()
+    out["velodyne"] = velodyne_phase(dev, args.profile)
+    done("velodyne")
+    torch.cuda.empty_cache()
+    out["raycast"] = raycast_phase(scans, dev, args.profile)
+    done("raycast")
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as f:

@@ -39,7 +39,10 @@ def test_sources_import_no_jax(path):
 def test_import_leaves_jax_out():
     code = ("import sys, voxblox_tpu_torch.server.mapper, "
             "voxblox_tpu_torch.sim.world, voxblox_tpu_torch.ops.esdf_relax, "
-            "voxblox_tpu_torch.ops.mesh, voxblox_tpu_torch.ops.marching_cubes; "
+            "voxblox_tpu_torch.ops.mesh, voxblox_tpu_torch.ops.marching_cubes, "
+            "voxblox_tpu_torch.ops.raycast, voxblox_tpu_torch.ops.tsdf, "
+            "voxblox_tpu_torch.ops.interp, voxblox_tpu_torch.models.maps, "
+            "voxblox_tpu_torch.sim.objects; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'voxblox_tpu')]; "
             "assert not bad, bad")

@@ -363,7 +363,7 @@ def test_online_steps_with_mesh_match_jax_end_to_end(tmp_path):
         map_config=MapConfig(**MAP),
         integrator_config=TsdfIntegratorConfig(**TSDF),
         esdf_config=EsdfIntegratorConfig(**ESDF), mesh_config=TM(**MESH),
-        projective_fov_deg=FOV_DEG, projective_intrinsics=intr,
+        method="projective", projective_fov_deg=FOV_DEG, projective_intrinsics=intr,
         device="cpu", **SERVER)
     assert srv.mesh_config.update_bucket == 8
     for R, t, pts, col, _ in scans:
@@ -429,7 +429,8 @@ def test_tsdf_server_meshes_without_esdf():
     srv = TsdfServer(
         map_config=MapConfig(voxel_size=0.2, max_blocks=256),
         integrator_config=TsdfIntegratorConfig(**TSDF),
-        mesh_config=TM(update_bucket=16), projective_resolution=(64, 48),
+        mesh_config=TM(update_bucket=16), method="projective",
+        projective_resolution=(64, 48),
         projective_fov_deg=FOV_DEG, device="cpu")
     for R, t, pts, col, _ in scans:
         srv.insert_pointcloud((R, t), pts, col)

@@ -178,7 +178,7 @@ def test_online_step_matches_jax_end_to_end(tmp_path):
     srv = EsdfServer(
         map_config=MapConfig(**MAP),
         integrator_config=TsdfIntegratorConfig(**TSDF),
-        esdf_config=EsdfIntegratorConfig(**ESDF),
+        esdf_config=EsdfIntegratorConfig(**ESDF), method="projective",
         projective_resolution=(64, 48), projective_fov_deg=FOV_DEG,
         projective_intrinsics=intr, projective_pool=2,
         overflow_check_interval=10_000, device="cpu", **BUDGETS)
@@ -205,7 +205,7 @@ def test_online_step_matches_jax_end_to_end(tmp_path):
     # Grow-and-retry ends at the same rungs and the same map.
     tiny = TsdfServer(
         map_config=MapConfig(**MAP),
-        integrator_config=TsdfIntegratorConfig(**TSDF),
+        integrator_config=TsdfIntegratorConfig(**TSDF), method="projective",
         projective_resolution=(64, 48), projective_fov_deg=FOV_DEG,
         projective_max_mixed_slabs=8, overflow_check_interval=8,
         device="cpu")
@@ -312,7 +312,7 @@ def test_two_cm_allocation_and_budget_ladder_match_jax(tmp_path):
     srv = EsdfServer(
         map_config=MapConfig(**MAP_2CM),
         integrator_config=TsdfIntegratorConfig(**TSDF_2CM),
-        esdf_config=EsdfIntegratorConfig(**ESDF_2CM),
+        esdf_config=EsdfIntegratorConfig(**ESDF_2CM), method="projective",
         projective_resolution=(RES_2CM[0] // 2, RES_2CM[1] // 2),
         projective_fov_deg=FOV_DEG, projective_intrinsics=intr,
         projective_pool=2, overflow_check_interval=8, device="cpu",
@@ -346,24 +346,52 @@ def test_two_cm_allocation_and_budget_ladder_match_jax(tmp_path):
 
 
 def test_unported_requests_raise():
+    """ICP, clear spheres and map/PLY IO still raise; the ray-casting
+    methods, the spherical kinds, full-Euclidean ESDF and distance
+    pruning construct and run one tiny scan."""
     kw = dict(device="cpu")
-    with pytest.raises(NotImplementedError):
-        TsdfServer(method="fast", **kw)
     with pytest.raises(NotImplementedError):
         TsdfServer(enable_icp=True, **kw)
     with pytest.raises(NotImplementedError):
-        TsdfServer(projective_kind="spherical", **kw)
-    with pytest.raises(NotImplementedError):
-        EsdfServer(esdf_config=EsdfIntegratorConfig(
-            full_euclidean_distance=True), **kw)
-    with pytest.raises(NotImplementedError):
         EsdfServer(clear_sphere_for_planning=True, **kw)
-    with pytest.raises(NotImplementedError):
-        TsdfServer(max_block_distance_from_body=3.0, **kw)
+    with pytest.raises(ValueError):
+        TsdfServer(method="bogus", **kw)
+    with pytest.raises(ValueError):
+        EsdfServer(**kw).insert_pointcloud_and_update_esdf(
+            (torch.eye(3), torch.zeros(3)), torch.ones((4, 3)))
+    pts = torch.tensor([[0.0, 0.0, 2.0], [0.3, 0.1, 2.5], [-0.2, 0.4, 1.5],
+                        [1.0, -0.5, 3.0]])
+    # A ring at elevation 0 on the azimuth bin centres of a 4 x 1 lidar.
+    az = torch.tensor([-0.75, -0.25, 0.25, 0.75]) * np.pi
+    ring = torch.stack([2 * torch.cos(az), 2 * torch.sin(az),
+                        torch.zeros(4)], -1)
+    pose = (torch.eye(3), torch.zeros(3))
+    small = dict(map_config=MapConfig(voxel_size=0.2, max_blocks=256),
+                 integrator_config=TsdfIntegratorConfig(**TSDF), **kw)
+    for extra in (dict(method="fast"), dict(method="simple"),
+                  dict(method="merged"),
+                  dict(method="projective", projective_kind="spherical",
+                       projective_resolution=(4, 1)),
+                  dict(method="projective",
+                       projective_kind="spherical_organized",
+                       projective_resolution=(4, 1)),
+                  dict(method="fast", max_block_distance_from_body=3.0)):
+        srv = TsdfServer(**small, **extra)
+        srv.insert_pointcloud(pose, ring if "projective_kind" in extra
+                              else pts)
+        assert int(srv.layer.num_blocks) > 0, extra
+        assert float(srv.layer.channels["weight"].sum()) > 0, extra
+    esrv = EsdfServer(esdf_config=EsdfIntegratorConfig(
+        full_euclidean_distance=True, max_distance_m=2.0,
+        default_distance_m=2.0, min_distance_m=0.4, max_active_blocks=64,
+        inner_sweeps=2, max_outer_sweeps=2), method="fast", **small)
+    esrv.insert_pointcloud(pose, pts)
+    assert esrv.update_esdf() >= 1
+    assert int(((esrv.esdf_layer.channels["esdf_flags"] & 1) != 0).sum()) > 0
     # The strided schedule and meshing are ported: they construct and run.
     EsdfServer(esdf_config=EsdfIntegratorConfig(
         sweep_strides=(8, 4, 2, 1)), **kw)
-    srv = TsdfServer(**kw)
+    srv = TsdfServer(method="projective", **kw)
     srv.update_mesh()
     assert len(srv.generate_mesh().blocks) == 0
     with pytest.raises(NotImplementedError):
@@ -372,6 +400,12 @@ def test_unported_requests_raise():
         srv.save_map("map.vxblx")
     with pytest.raises(NotImplementedError):
         srv.load_map("map.vxblx")
+
+
+def test_default_method_is_fast_as_in_jax():
+    from voxblox_tpu.server.mapper import TsdfServer as JaxTsdfServer
+
+    assert TsdfServer(device="cpu").method == "fast" == JaxTsdfServer().method
 
 
 def test_two_dispatch_path_matches_fused_step():
@@ -388,7 +422,7 @@ def test_two_dispatch_path_matches_fused_step():
             integrator_config=TsdfIntegratorConfig(**TSDF),
             esdf_config=EsdfIntegratorConfig(**dict(ESDF,
                                                     max_active_blocks=128)),
-            projective_resolution=(64, 48), projective_fov_deg=FOV_DEG,
+            method="projective", projective_resolution=(64, 48), projective_fov_deg=FOV_DEG,
             overflow_check_interval=interval, device="cpu")
 
     a, b = make(1), make(4)

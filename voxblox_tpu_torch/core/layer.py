@@ -220,16 +220,18 @@ def allocate_blocks(layer: VoxelLayer, block_ijk, valid,
     mb = layer.max_blocks
     lanes = torch.arange(w0.shape[0], dtype=torch.int64, device=dev)
     ph = vhash.hash_words(w0, w1) & (pending_size - 1)
+    # Lanes that are not missing scatter to 4096 dump cells past the
+    # buffer, not one: millions of atomics on one address serialize.
+    dump = pending_size + (lanes & 4095)
     overflowed = torch.zeros((), dtype=torch.bool, device=dev)
     table = layer.table
     for _ in range(8):
         missing = valid & (vhash.lookup(table, w0, w1) < 0)
         if not _runtime.host_bool(missing.any()):
             break
-        win = torch.full((pending_size + 1,), -1, dtype=torch.int64,
+        win = torch.full((pending_size + 4096,), -1, dtype=torch.int64,
                          device=dev)
-        win.scatter_reduce_(0, torch.where(missing, ph, pending_size),
-                            lanes, "amax")
+        win.scatter_reduce_(0, torch.where(missing, ph, dump), lanes, "amax")
         win = win[:pending_size]
         new_mask = win >= 0
         src = torch.where(new_mask, win, 0)
@@ -259,6 +261,19 @@ def remove_blocks(layer: VoxelLayer, rows, valid):
         put_rows(c, rows, valid, torch.zeros(
             (rows.shape[0], c.shape[1]), dtype=c.dtype, device=c.device))
     return layer
+
+
+def remove_distant_blocks(layer: VoxelLayer, center, max_distance: float):
+    """Remove active blocks whose centre lies farther than
+    ``max_distance`` from ``center`` (Layer::removeDistantBlocks,
+    core/layer.h:170-182)."""
+    centers = (layer.block_ijk.to(torch.float32) + 0.5) * layer.block_size
+    center = torch.as_tensor(center, dtype=torch.float32, device=layer.device)
+    dist = torch.linalg.vector_norm(centers - center[None, :], dim=-1)
+    doomed = layer.active_mask() & (dist > max_distance)
+    rows = torch.arange(layer.max_blocks, dtype=torch.int32,
+                        device=layer.device)
+    return remove_blocks(layer, rows, doomed)
 
 
 def mark_dirty(layer: VoxelLayer, rows, valid, bits: int):

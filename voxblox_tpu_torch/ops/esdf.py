@@ -1,5 +1,5 @@
-"""ESDF propagation by parallel 26-neighbour relaxation sweeps,
-quasi-Euclidean path (port of voxblox_tpu/ops/esdf.py).
+"""ESDF propagation by parallel 26-neighbour relaxation sweeps (port of
+voxblox_tpu/ops/esdf.py).
 
 Seeding classifies every observed TSDF voxel (fixed band copies the TSDF
 distance, the rest start at sign * default); the raise resets the
@@ -18,9 +18,11 @@ the relaxation kernel (ops/esdf_relax.relax): K1, or K2 when
 ``sweep_strides`` has a stride > 1, whose per-voxel jump codes
 (``stride_codes``) are built once per sweep by halo-synchronized erosion.
 Otherwise the plain ``_relax_once`` transcription of the XLA path runs
-(which ignores ``sweep_strides``, as the reference does). The
-full-Euclidean parent path is not ported and raises
-``NotImplementedError``.
+(which ignores ``sweep_strides``, as the reference does). With
+``full_euclidean_distance`` every voxel also carries the offset to its
+seed (the ``parent`` channel, packed into one int32 during the sweep) and
+a candidate costs the growth of that offset's length; this path never
+takes the kernels, as in the JAX package.
 
 The outer loop is a Python loop reading one device flag per iteration
 (``_runtime.host_bool``); its first iteration needs no read.
@@ -52,12 +54,6 @@ _OFFS27 = np.array([(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
 OBS = vlayer.ESDF_OBSERVED
 FIX = vlayer.ESDF_FIXED
 HALL = vlayer.ESDF_HALLUCINATED
-
-
-def _check_cfg(cfg: EsdfIntegratorConfig):
-    if cfg.full_euclidean_distance:
-        raise NotImplementedError(
-            "full-Euclidean ESDF (parent vectors) is not ported")
 
 
 # ---------------------------------------------------------------------------
@@ -131,12 +127,12 @@ def halo_exchange(x, nbr):
     return out.view_as(x)
 
 
-def _pad(x, n: int, v: int):
-    """Flat [n, v^3] -> padded cubes [n, v+2, v+2, v+2] with a zero ring.
-    Followed by ``halo_exchange`` this is the JAX ``_padded`` /
-    ``build_padded`` with fill 0 (absent neighbours keep the zero ring)."""
-    out = torch.zeros((n, v + 2, v + 2, v + 2), dtype=x.dtype,
-                      device=x.device)
+def _pad(x, n: int, v: int, fill=0):
+    """Flat [n, v^3] -> padded cubes [n, v+2, v+2, v+2] with a ring of
+    ``fill``. Followed by ``halo_exchange`` this is the JAX ``_padded`` /
+    ``build_padded`` (absent neighbours keep the fill)."""
+    out = torch.full((n, v + 2, v + 2, v + 2), fill, dtype=x.dtype,
+                     device=x.device)
     out[:, 1:-1, 1:-1, 1:-1] = x.reshape(n, v, v, v)
     return out
 
@@ -348,15 +344,38 @@ def _seed_compact(esdf_layer, tsdf_layer, cfg, tsdf_rows_mask, k: int,
 # ---------------------------------------------------------------------------
 
 
-def _relax_once(d_pad, obs_pad, src_pad, d, upd_mask, voxel_size, cfg):
-    """One quasi-Euclidean 26-neighbour relaxation on padded cubes — the
-    plain transcription of the JAX XLA path (the sweep's path without the
-    kernel)."""
+def _pack_parent(px, py, pz):
+    """Parent offset vector (each axis in [-126, 126]) -> packed int32."""
+    return (((px + 128) << 16) | ((py + 128) << 8) | (pz + 128)).to(
+        torch.int32)
+
+
+def _unpack_parent(p):
+    return (p >> 16) - 128, ((p >> 8) & 0xFF) - 128, (p & 0xFF) - 128
+
+
+_PARENT_ZERO = (128 << 16) | (128 << 8) | 128  # packed (0, 0, 0)
+
+
+def _relax_once(d_pad, obs_pad, src_pad, d, upd_mask, voxel_size, cfg,
+                parent_pad=None, parent=None):
+    """One 26-neighbour relaxation on padded cubes — the plain
+    transcription of the JAX XLA path (the sweep's path without the
+    kernel). Quasi-Euclidean: a neighbour costs its edge length.
+    Full-Euclidean (``parent_pad``/``parent``, packed int32 offsets to
+    the seed): a neighbour costs voxel_size * (|parent + offset| -
+    |parent|), never negative, and a winning candidate adopts the
+    extended offset; returns (d, parent) then."""
     v = d.shape[1]
+    full_euclid = parent_pad is not None
     pos = d > 0.0
     best_pos = torch.full_like(d, float("inf"))
     best_neg = torch.full_like(d, -float("inf"))
     flip_len = torch.full_like(d, float("inf"))
+    if full_euclid:
+        best_pos_par = torch.full(d.shape, _PARENT_ZERO, dtype=torch.int32,
+                                  device=d.device)
+        best_neg_par = best_pos_par.clone()
     for k in range(26):
         dx, dy, dz = (int(c) for c in _OFFSETS[k])
         step = float(np.float32(_DISTANCES[k]) * voxel_size)
@@ -365,10 +384,33 @@ def _relax_once(d_pad, obs_pad, src_pad, d, upd_mask, voxel_size, cfg):
         nd = d_pad[sl]
         n_ok = obs_pad[sl] & src_pad[sl]
         n_pos = nd > 0.0
-        cp = torch.where(n_ok & n_pos, nd + step, float("inf"))
-        cn = torch.where(n_ok & ~n_pos, nd - step, -float("inf"))
-        best_pos = torch.minimum(best_pos, cp)
-        best_neg = torch.maximum(best_neg, cn)
+        if full_euclid:
+            # The source sits at centre + offset: walking back to the
+            # centre extends its seed vector by +offset.
+            px, py, pz = _unpack_parent(parent_pad[sl])
+            cx = torch.clamp(px + dx, -126, 126)
+            cy = torch.clamp(py + dy, -126, 126)
+            cz = torch.clamp(pz + dz, -126, 126)
+            norm_n = torch.sqrt((px * px + py * py + pz * pz).to(
+                torch.float32))
+            norm_c = torch.sqrt((cx * cx + cy * cy + cz * cz).to(
+                torch.float32))
+            inc = torch.clamp((norm_c - norm_n) * voxel_size, min=0.0)
+            cand_par = _pack_parent(cx, cy, cz)
+        else:
+            inc = step
+        cp = torch.where(n_ok & n_pos, nd + inc, float("inf"))
+        cn = torch.where(n_ok & ~n_pos, nd - inc, -float("inf"))
+        if full_euclid:
+            take_p = cp < best_pos
+            best_pos_par = torch.where(take_p, cand_par, best_pos_par)
+            best_pos = torch.where(take_p, cp, best_pos)
+            take_n = cn > best_neg
+            best_neg_par = torch.where(take_n, cand_par, best_neg_par)
+            best_neg = torch.where(take_n, cn, best_neg)
+        else:
+            best_pos = torch.minimum(best_pos, cp)
+            best_neg = torch.maximum(best_neg, cn)
         potential = nd - torch.where(n_pos, step, -step)
         discrepant = (potential - d).abs() > step
         flip_len = torch.minimum(flip_len, torch.where(
@@ -379,7 +421,17 @@ def _relax_once(d_pad, obs_pad, src_pad, d, upd_mask, voxel_size, cfg):
     cand = torch.where(torch.isfinite(flip_len) & (cand.abs() > flip_len),
                        sgn * flip_len, cand)
     improved = (cand - d).abs() > cfg.min_diff_m
-    return torch.where(upd_mask & improved, cand, d)
+    take = upd_mask & improved
+    d_out = torch.where(take, cand, d)
+    if not full_euclid:
+        return d_out
+    # A neighbour's parent is adopted only where its candidate won; the
+    # flip cap restarts at the interface (parent zero).
+    from_nbr = take & torch.where(pos, cand == best_pos, cand == best_neg)
+    parent_out = torch.where(from_nbr, torch.where(pos, best_pos_par,
+                                                   best_neg_par), parent)
+    parent_out = torch.where(take & ~from_nbr, _PARENT_ZERO, parent_out)
+    return d_out, parent_out
 
 
 def _morton10(rel):
@@ -399,11 +451,12 @@ def _morton10(rel):
 
 
 def _sweep_on(esdf_layer, d, flags, nbr, region_rows, cfg, write_back_rows,
-              relax_impl: str = "kernel"):
+              relax_impl: str = "kernel", parent8=None):
     """Relax flat working-set arrays d/flags [n, vpb] with neighbour table
     nbr [n, 27] (rows of the same arrays, -1 missing) to convergence or
     ``cfg.max_outer_sweeps``; write back into the layer (whole pool when
-    ``write_back_rows`` is None, else into ``(rows, ok)``). Returns
+    ``write_back_rows`` is None, else into ``(rows, ok)``). ``parent8``:
+    int8 [n, vpb*3] seed offsets of the rows (full-Euclidean). Returns
     (layer, iters, unconverged bool[max_blocks]) — unconverged = rows
     whose last outer iteration still changed a voxel > min_diff."""
     v = esdf_layer.vps
@@ -418,7 +471,12 @@ def _sweep_on(esdf_layer, d, flags, nbr, region_rows, cfg, write_back_rows,
     d_pad = halo_exchange(_pad(d, n, v), nbr)
     rc = torch.ones(n, dtype=torch.bool, device=d.device)
     it = 0
-    use_kernel = cfg.use_pallas_kernel and v == 16
+    full_euclid = cfg.full_euclidean_distance
+    use_kernel = cfg.use_pallas_kernel and v == 16 and not full_euclid
+    if full_euclid:
+        p8 = parent8.reshape(n, -1, 3).to(torch.int32)
+        pp = _pack_parent(p8[..., 0], p8[..., 1], p8[..., 2]).reshape(
+            n, v, v, v)
     if relax_impl not in ("kernel", "plain"):
         raise ValueError(f"relax_impl must be 'kernel' or 'plain', "
                          f"not {relax_impl!r}")
@@ -449,10 +507,21 @@ def _sweep_on(esdf_layer, d, flags, nbr, region_rows, cfg, write_back_rows,
         else:
             new = d_pad
             di = d_pad[:, 1:-1, 1:-1, 1:-1]
+            if full_euclid:
+                # The parent halo is taken at the outer iteration's start,
+                # as the distance halo is.
+                p_new = halo_exchange(_pad(pp, n, v, _PARENT_ZERO), nbr)
             for _ in range(cfg.inner_sweeps):
                 src_pad = obs_pad & (new.abs() < cfg.max_distance_m)
-                di = _relax_once(new, obs_pad, src_pad, di, upd_c,
-                                 esdf_layer.voxel_size, cfg)
+                if full_euclid:
+                    di, pp = _relax_once(new, obs_pad, src_pad, di, upd_c,
+                                         esdf_layer.voxel_size, cfg,
+                                         parent_pad=p_new, parent=pp)
+                    p_new = p_new.clone()
+                    p_new[:, 1:-1, 1:-1, 1:-1] = pp
+                else:
+                    di = _relax_once(new, obs_pad, src_pad, di, upd_c,
+                                     esdf_layer.voxel_size, cfg)
                 new = new.clone()
                 new[:, 1:-1, 1:-1, 1:-1] = di
         rc = ((new - d_pad).abs() > cfg.min_diff_m).reshape(n, -1).any(1)
@@ -460,14 +529,21 @@ def _sweep_on(esdf_layer, d, flags, nbr, region_rows, cfg, write_back_rows,
         it += 1
     d_out = d_pad[:, 1:-1, 1:-1, 1:-1].reshape(n, -1)
     ch = esdf_layer.channels
+    if full_euclid:
+        par8 = torch.stack(_unpack_parent(pp), -1).to(torch.int8).reshape(
+            n, -1)
     if write_back_rows is None:
         ch["esdf"].copy_(d_out)
         unconverged = rc
+        if full_euclid:
+            ch["parent"].copy_(par8)
     else:
         rows, ok = write_back_rows
         vlayer.put_rows(ch["esdf"], rows, ok, d_out)
         unconverged = torch.zeros(mb, dtype=torch.bool, device=d.device)
         vlayer.put_rows(unconverged, rows, ok, rc & ok)
+        if full_euclid:
+            vlayer.put_rows(ch["parent"], rows, ok, par8)
     return esdf_layer, it, unconverged
 
 
@@ -476,7 +552,6 @@ def lower_sweep(esdf_layer, cfg: EsdfIntegratorConfig, region_rows=None,
     """Relax to convergence (or the outer cap) over ``region_rows`` (None
     = all active rows). Returns (layer, iters, region_overflow,
     unconverged)."""
-    _check_cfg(cfg)
     mb = esdf_layer.max_blocks
     dev = esdf_layer.device
     active = esdf_layer.active_mask()
@@ -489,7 +564,7 @@ def lower_sweep(esdf_layer, cfg: EsdfIntegratorConfig, region_rows=None,
         layer_out, iters, unconverged = _sweep_on(
             esdf_layer, esdf_layer.channels["esdf"],
             esdf_layer.channels["esdf_flags"], nbr, region_rows, cfg, None,
-            relax_impl)
+            relax_impl, parent8=esdf_layer.channels["parent"])
         return (layer_out, iters, torch.zeros((), dtype=torch.bool,
                                               device=dev), unconverged)
 
@@ -523,7 +598,8 @@ def lower_sweep(esdf_layer, cfg: EsdfIntegratorConfig, region_rows=None,
                       0).to(torch.uint8)
     region_c = region_rows[safe] & r_ok
     out_layer, iters, unconverged = _sweep_on(
-        esdf_layer, d_c, f_c, nbr_c, region_c, cfg, (rows, r_ok), relax_impl)
+        esdf_layer, d_c, f_c, nbr_c, region_c, cfg, (rows, r_ok), relax_impl,
+        parent8=esdf_layer.channels["parent"][safe])
     return out_layer, iters, region_overflow, unconverged
 
 
@@ -724,7 +800,6 @@ def update_from_tsdf_batch(esdf_layer, tsdf_layer,
     """Batch rebuild, retried at a grown bucket on working-set overflow:
     (esdf_layer, overflow, iters). Each attempt runs on a copy of the
     input so a retry starts from the same state."""
-    _check_cfg(cfg)
     run_cfg = _bucketed_cfg(cfg, esdf_layer, tsdf_layer)
     while True:
         out, overflow, region_ovf, iters = _batch(
@@ -742,7 +817,6 @@ def update_from_tsdf_batch_deferred(esdf_layer, tsdf_layer,
                                     relax_impl: str = "kernel"):
     """Batch rebuild without the retry: (esdf_layer, overflow, region_ovf,
     iters), flags as device booleans."""
-    _check_cfg(cfg)
     run_cfg = _bucketed_cfg(cfg, esdf_layer, tsdf_layer)
     return _batch(esdf_layer, tsdf_layer, run_cfg, relax_impl)
 
@@ -752,7 +826,6 @@ def update_from_tsdf_incremental(esdf_layer, tsdf_layer,
                                  relax_impl: str = "kernel"):
     """Incremental update, retried at a grown bucket on working-set
     overflow: (esdf_layer, tsdf_layer, overflow, iters)."""
-    _check_cfg(cfg)
     run_cfg = _bucketed_cfg(cfg, esdf_layer, tsdf_layer)
     while True:
         out_e, out_t, overflow, region_ovf, iters = _incremental(
@@ -772,6 +845,5 @@ def update_from_tsdf_incremental_deferred(esdf_layer, tsdf_layer,
     """Incremental update without the retry: (esdf_layer, tsdf_layer,
     overflow, region_ovf, iters); on a late region overflow recover with
     grow_bucket_cache + update_from_tsdf_batch. Updates in place."""
-    _check_cfg(cfg)
     run_cfg = _bucketed_cfg(cfg, esdf_layer, tsdf_layer)
     return _incremental(esdf_layer, tsdf_layer, run_cfg, relax_impl)

@@ -1,5 +1,6 @@
-"""Projective (voxel-centric) TSDF integration, single-scan pinhole path
-(port of voxblox_tpu/ops/projective.py).
+"""Projective (voxel-centric) TSDF integration (port of
+voxblox_tpu/ops/projective.py): pinhole and spherical range images, the
+single-scan path and the K-scan batch path.
 
 Every voxel gathers its update from a virtual range image of the scan:
 candidate blocks around the sensor are culled against a min/max image
@@ -18,6 +19,7 @@ stored numbers match — and out-of-range scatters use explicit dump rows.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -36,8 +38,9 @@ _INF = float("inf")
 class RangeImage(NamedTuple):
     rng: torch.Tensor  # f32[H, W]; +inf where no return
     color: torch.Tensor  # f32[H, W, 3]
-    params: torch.Tensor  # f32[4] pinhole (fx, fy, cx, cy)
-    kind: str
+    # Pinhole (fx, fy, cx, cy); spherical (az0, el0, daz, del).
+    params: torch.Tensor  # f32[4]
+    kind: str  # "pinhole" | "spherical"
 
 
 def _f2i(x):
@@ -67,46 +70,109 @@ def _last_lane(n: int, idx, ok):
 # ---------------------------------------------------------------------------
 # Range images
 # ---------------------------------------------------------------------------
+#
+# Every builder takes clouds with any leading batch dims ([..., N, 3] or
+# [..., H, W, 3]) and returns images [..., H, W]: the batch path builds
+# all K scans' images in one pass. ``params`` is one f32[4] shared by the
+# batch (it depends only on the resolution and the intrinsics).
+
+
+def _bin(points_C, colors, flat, inb, h: int, w: int):
+    """Scatter-min binning of flat [..., N] pixel ids: per pixel the
+    MINIMUM range wins; among equal ranges the last point's colour."""
+    lead = points_C.shape[:-2]
+    n_img = h * w
+    k = int(np.prod(lead)) if lead else 1
+    offs = torch.arange(k, dtype=torch.int64, device=points_C.device)
+    flat = flat.reshape(k, -1).to(torch.int64)
+    inb = inb.reshape(k, -1)
+    g = torch.where(inb, flat + offs[:, None] * n_img, k * n_img).reshape(-1)
+    r = _norm(points_C).reshape(-1)
+    rng = torch.full((k * n_img + 1,), _INF, dtype=torch.float32,
+                     device=points_C.device)
+    rng.scatter_reduce_(0, g, torch.where(inb.reshape(-1), r, _INF), "amin")
+    won = inb.reshape(-1) & (rng[g] == r)
+    win = _last_lane(k * n_img, g, won)
+    cflat = torch.where((win >= 0)[:, None],
+                        colors.reshape(-1, 3)[torch.clamp(win, min=0)], 0.0)
+    return (rng[:k * n_img].reshape(lead + (h, w)),
+            cflat.reshape(lead + (h, w, 3)))
 
 
 def build_pinhole_range_image(points_C, colors, resolution,
                               fov_h_rad: Optional[float] = None,
                               intrinsics=None):
-    """Bin a sensor-frame cloud into a pinhole image: per pixel the
-    MINIMUM range wins; ties in range keep the last point's colour."""
+    """Bin sensor-frame clouds [..., N, 3] into pinhole images: per pixel
+    the MINIMUM range wins; ties in range keep the last point's colour."""
     w, h = resolution
     if intrinsics is None:
         fx = w / (2.0 * np.tan(fov_h_rad / 2.0))
         intrinsics = (fx, fx, w / 2.0, h / 2.0)
     fx, fy, cx, cy = intrinsics
-    z = points_C[:, 2]
+    z = points_C[..., 2]
     valid = z > 1e-3
     zs = torch.clamp(z, min=1e-6)
-    u = _f2i(torch.round(points_C[:, 0] / zs * fx + cx))
-    v = _f2i(torch.round(points_C[:, 1] / zs * fy + cy))
+    u = _f2i(torch.round(points_C[..., 0] / zs * fx + cx))
+    v = _f2i(torch.round(points_C[..., 1] / zs * fy + cy))
     inb = valid & (u >= 0) & (u < w) & (v >= 0) & (v < h)
-    flat = torch.where(inb, v.to(torch.int64) * w + u, h * w)
-    r = _norm(points_C)
-    rng = torch.full((h * w + 1,), _INF, dtype=torch.float32,
-                     device=points_C.device)
-    rng.scatter_reduce_(0, flat, torch.where(inb, r, _INF), "amin")
-    won = inb & (rng[flat] == r)
-    rng = rng[:h * w]
-    win = _last_lane(h * w, flat, won)
-    cflat = torch.where((win >= 0)[:, None],
-                        colors[torch.clamp(win, min=0)], 0.0)
+    rng, color = _bin(points_C, colors, v.to(torch.int64) * w + u, inb, h, w)
     return RangeImage(
-        rng=rng.reshape(h, w), color=cflat.reshape(h, w, 3),
+        rng=rng, color=color,
         params=_runtime.const(intrinsics, torch.float32, points_C.device),
-        kind="pinhole",
-    )
+        kind="pinhole")
+
+
+def _spherical_params(w: int, h: int, fov_up_deg, fov_down_deg, device):
+    el0 = np.deg2rad(fov_down_deg)
+    el1 = np.deg2rad(fov_up_deg)
+    return el0, el1, _runtime.const(
+        [-np.pi, el0, 2 * np.pi / w, (el1 - el0) / h], torch.float32, device)
+
+
+def build_spherical_range_image(points_C, colors, resolution,
+                                fov_up_deg=25.0, fov_down_deg=-25.0):
+    """Spherical (azimuth/elevation) binning of unordered clouds [..., N,
+    3] (e.g. velodyne): scatter-min as the pinhole builder."""
+    w, h = resolution
+    el0, el1, params = _spherical_params(w, h, fov_up_deg, fov_down_deg,
+                                         points_C.device)
+    r = _norm(points_C)
+    valid = r > 1e-3
+    az = torch.atan2(points_C[..., 1], points_C[..., 0])
+    el = torch.asin(points_C[..., 2] / torch.clamp(r, min=1e-6))
+    daz = 2 * np.pi / w
+    dele = (el1 - el0) / h
+    u = _f2i(torch.floor((az + np.pi) / daz))
+    v = _f2i(torch.floor((el - el0) / dele))
+    inb = valid & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    rng, color = _bin(points_C, colors, v.to(torch.int64) * w + u, inb, h, w)
+    return RangeImage(rng=rng, color=color, params=params, kind="spherical")
+
+
+def build_spherical_range_image_organized(points_C, colors, resolution,
+                                          fov_up_deg=25.0,
+                                          fov_down_deg=-25.0):
+    """Scatter-free binning of raster-ordered spinning-lidar scans
+    [..., H*W, 3] (point v*W + u is beam row v's return at azimuth bin u;
+    no-return points are 0): a norm and a reshape."""
+    w, h = resolution
+    _, _, params = _spherical_params(w, h, fov_up_deg, fov_down_deg,
+                                     points_C.device)
+    lead = points_C.shape[:-2]
+    r = _norm(points_C)
+    valid = r > 1e-3
+    rng = torch.where(valid, r, _INF).reshape(lead + (h, w))
+    color = torch.where(valid[..., None], colors, 0.0).reshape(
+        lead + (h, w, 3))
+    return RangeImage(rng=rng, color=color, params=params, kind="spherical")
 
 
 def build_pinhole_range_image_organized(points_C, colors, pool: int,
                                         intrinsics):
-    """Bin a raster-ordered [H, W, 3] cloud by exact ``pool x pool``
+    """Bin raster-ordered [..., H, W, 3] clouds by exact ``pool x pool``
     min-pooling; the first minimum in raster order gives the colour."""
-    h, w, _ = points_C.shape
+    h, w, _ = points_C.shape[-3:]
+    lead = points_C.shape[:-3]
     assert h % pool == 0 and w % pool == 0, (
         f"pool={pool} must divide the organized image shape ({h}, {w})")
     fx, fy, cx, cy = intrinsics
@@ -117,16 +183,18 @@ def build_pinhole_range_image_organized(points_C, colors, pool: int,
     if pool == 1:
         rng, cols = r, colors
     else:
-        rr = r.reshape(hv, pool, wv, pool)
-        cc = colors.reshape(hv, pool, wv, pool, 3)
-        rng = torch.amin(rr, dim=(1, 3))
-        cols = torch.zeros((hv, wv, 3), dtype=colors.dtype,
+        rr = r.reshape(lead + (hv, pool, wv, pool))
+        cc = colors.reshape(lead + (hv, pool, wv, pool, 3))
+        rng = torch.amin(rr, dim=(-3, -1))
+        cols = torch.zeros(lead + (hv, wv, 3), dtype=colors.dtype,
                            device=colors.device)
-        taken = torch.zeros((hv, wv), dtype=torch.bool, device=colors.device)
+        taken = torch.zeros(lead + (hv, wv), dtype=torch.bool,
+                            device=colors.device)
         for i in range(pool):
             for j in range(pool):
-                win = (rr[:, i, :, j] == rng) & ~taken
-                cols = torch.where(win[..., None], cc[:, i, :, j], cols)
+                win = (rr[..., :, i, :, j] == rng) & ~taken
+                cols = torch.where(win[..., None], cc[..., :, i, :, j, :],
+                                   cols)
                 taken = taken | win
     params = _runtime.const(
         [fx / pool, fy / pool, (cx - (pool - 1) / 2.0) / pool,
@@ -139,14 +207,22 @@ def build_pinhole_range_image_organized(points_C, colors, pool: int,
 
 def _project(img: RangeImage, p_C):
     """Sensor-frame points [...,3] -> (u, v, range, in_front)."""
-    if img.kind != "pinhole":
-        raise NotImplementedError("only pinhole range images are ported")
-    fx, fy, cx, cy = img.params[0], img.params[1], img.params[2], img.params[3]
-    z = p_C[..., 2]
-    zs = torch.clamp(z, min=1e-6)
-    u = p_C[..., 0] / zs * fx + cx
-    v = p_C[..., 1] / zs * fy + cy
-    return u, v, _norm(p_C), z > 1e-3
+    if img.kind == "pinhole":
+        fx, fy, cx, cy = (img.params[0], img.params[1], img.params[2],
+                          img.params[3])
+        z = p_C[..., 2]
+        zs = torch.clamp(z, min=1e-6)
+        u = p_C[..., 0] / zs * fx + cx
+        v = p_C[..., 1] / zs * fy + cy
+        return u, v, _norm(p_C), z > 1e-3
+    az0, el0, daz, dele = (img.params[0], img.params[1], img.params[2],
+                           img.params[3])
+    r = _norm(p_C)
+    az = torch.atan2(p_C[..., 1], p_C[..., 0])
+    el = torch.asin(p_C[..., 2] / torch.clamp(r, min=1e-6))
+    u = (az - az0) / daz - 0.5
+    v = (el - el0) / dele - 0.5
+    return u, v, r, r > 1e-3
 
 
 # ---------------------------------------------------------------------------
@@ -172,14 +248,22 @@ def _candidate_blocks(layer, img, R, t, cfg, hiz=None):
     u, v, r, front = _project(img, p_C)
     h, w = img.rng.shape
     margin_m = bs * float(np.sqrt(3)) / 2.0
-    fx, fy, cx, cy = img.params[0], img.params[1], img.params[2], img.params[3]
-    f = torch.maximum(fx, fy)
-    kappa = torch.sqrt(
-        1.0
-        + ((torch.maximum(cx, w - cx) + 1.0) / fx) ** 2
-        + ((torch.maximum(cy, h - cy) + 1.0) / fy) ** 2
-    )
-    pix_margin = kappa * f * margin_m / torch.clamp(r - margin_m, min=1e-3)
+    if img.kind == "pinhole":
+        # Footprint of a margin_m sphere: focal/depth, bounded through the
+        # secant kappa of the corner view angle (see the JAX module).
+        fx, fy, cx, cy = (img.params[0], img.params[1], img.params[2],
+                          img.params[3])
+        f = torch.maximum(fx, fy)
+        kappa = torch.sqrt(
+            1.0
+            + ((torch.maximum(cx, w - cx) + 1.0) / fx) ** 2
+            + ((torch.maximum(cy, h - cy) + 1.0) / fy) ** 2
+        )
+        pix_margin = kappa * f * margin_m / torch.clamp(r - margin_m,
+                                                        min=1e-3)
+    else:
+        pix_margin = (margin_m / torch.clamp(r - margin_m, min=1e-3)
+                      / img.params[2])
     ok = (
         (front | (r < 2 * margin_m))
         & (r < reach + margin_m)
@@ -221,10 +305,12 @@ def _pix_eff(img: RangeImage, cfg):
 
 
 def _hiz_tables(pix_eff):
-    """Min/max mip chain of the effective-range image (anisotropic for
-    skewed images): (flat f32[N,4] texels (lo, lo_band, hi, 0), int32
-    meta [(A+1)*(B+1), 4] = (offset, width, eff_a, eff_b), (A, B))."""
-    h, w = pix_eff.shape
+    """Min/max mip chain of effective-range images [..., H, W]
+    (anisotropic for skewed images): (flat f32[..., N, 4] texels (lo,
+    lo_band, hi, 0), int32 meta [(A+1)*(B+1), 4] = (offset, width, eff_a,
+    eff_b), (A, B)). The meta depends on the shape only."""
+    h, w = pix_eff.shape[-2:]
+    lead = pix_eff.shape[:-2]
     a_max = max(1, int(np.ceil(np.log2(w))))
     b_max = max(1, int(np.ceil(np.log2(h))))
     aniso = w >= 4 * h or h >= 4 * w
@@ -232,20 +318,20 @@ def _hiz_tables(pix_eff):
     band0 = torch.where(torch.isfinite(pix_eff), pix_eff, _INF)
     hi0 = pix_eff
 
-    def half(x, axis, init, op):
+    def half(x, axis, init, op):  # axis -2 (rows) or -1 (columns)
         n = x.shape[axis]
         if n == 1:
             return x
         if n % 2:
-            pad = torch.full((1, x.shape[1]) if axis == 0 else
-                             (x.shape[0], 1), init, dtype=x.dtype,
-                             device=x.device)
-            x = torch.cat([x, pad], dim=axis)
-        if axis == 0:
-            x = x.reshape(x.shape[0] // 2, 2, x.shape[1])
-            return op(x, dim=1)
-        x = x.reshape(x.shape[0], x.shape[1] // 2, 2)
-        return op(x, dim=2)
+            shape = list(x.shape)
+            shape[axis] = 1
+            x = torch.cat([x, torch.full(shape, init, dtype=x.dtype,
+                                         device=x.device)], dim=axis)
+        if axis == -2:
+            x = x.reshape(x.shape[:-2] + (x.shape[-2] // 2, 2, x.shape[-1]))
+            return op(x, dim=-2)
+        x = x.reshape(x.shape[:-1] + (x.shape[-1] // 2, 2))
+        return op(x, dim=-1)
 
     def half2(t, axis):
         return (half(t[0], axis, _INF, torch.amin),
@@ -261,9 +347,9 @@ def _hiz_tables(pix_eff):
         nonlocal off
         lo_r, band_r, hi_r = t
         flats.append(torch.stack([lo_r, band_r, hi_r, torch.zeros_like(hi_r)],
-                                 -1).reshape(-1, 4))
-        entry = (off, lo_r.shape[1], ea, eb)
-        off += lo_r.shape[0] * lo_r.shape[1]
+                                 -1).reshape(lead + (-1, 4)))
+        entry = (off, lo_r.shape[-1], ea, eb)
+        off += lo_r.shape[-2] * lo_r.shape[-1]
         return entry
 
     if aniso:
@@ -272,18 +358,18 @@ def _hiz_tables(pix_eff):
             row = col
             for a in range(a_max + 1):
                 meta[b * (a_max + 1) + a] = emit(row, a, b)
-                row = half2(row, 1)
-            col = half2(col, 0)
+                row = half2(row, -1)
+            col = half2(col, -2)
     else:
         cur = (lo0, band0, hi0)
         diag = []
         for m in range(max(a_max, b_max) + 1):
             diag.append(emit(cur, m, m))
-            cur = half2(half2(cur, 0), 1)
+            cur = half2(half2(cur, -2), -1)
         for b in range(b_max + 1):
             for a in range(a_max + 1):
                 meta[b * (a_max + 1) + a] = diag[max(a, b)]
-    return (torch.cat(flats, 0),
+    return (torch.cat(flats, -2),
             _runtime.const(meta, torch.int32, pix_eff.device),
             (a_max, b_max))
 
@@ -370,14 +456,47 @@ def _classify_slabs(layer, safe_rows, row_ok, R, t, img, hiz, cfg):
                                      torch.float32, dev)
     r_lo = _norm(torch.minimum(torch.maximum(t, box_lo), box_hi) - t)
 
-    fx, fy, cx, cy = img.params[0], img.params[1], img.params[2], img.params[3]
-    zc = p_C[..., 2]
-    zcs = torch.clamp(zc, min=1e-6)
-    cu = slab_corners(p_C[..., 0] / zcs * fx + cx)
-    cv = slab_corners(p_C[..., 1] / zcs * fy + cy)
-    u0, u1 = torch.amin(cu, -1), torch.amax(cu, -1)
-    v0, v1 = torch.amin(cv, -1), torch.amax(cv, -1)
-    classifiable = torch.all(slab_corners(zc) > 1e-3, -1)
+    if img.kind == "pinhole":
+        fx, fy, cx, cy = (img.params[0], img.params[1], img.params[2],
+                          img.params[3])
+        zc = p_C[..., 2]
+        zcs = torch.clamp(zc, min=1e-6)
+        cu = slab_corners(p_C[..., 0] / zcs * fx + cx)
+        cv = slab_corners(p_C[..., 1] / zcs * fy + cy)
+        u0, u1 = torch.amin(cu, -1), torch.amax(cu, -1)
+        v0, v1 = torch.amin(cv, -1), torch.amax(cv, -1)
+        # Perspective hull containment needs the whole box in front.
+        classifiable = torch.all(slab_corners(zc) > 1e-3, -1)
+    else:
+        # Anisotropic angular footprint from the slab's sensor-frame
+        # corners: azimuth extremes at corner vertices (guarded against
+        # the +-pi seam and a sensor inside the xy shadow); elevation from
+        # the corner z extremes against conservative rho bounds.
+        az0, el0, daz, dele = (img.params[0], img.params[1], img.params[2],
+                               img.params[3])
+        cxs = slab_corners(p_C[..., 0])
+        cys = slab_corners(p_C[..., 1])
+        czs = slab_corners(p_C[..., 2])
+        z_lo, z_hi = torch.amin(czs, -1), torch.amax(czs, -1)
+        x_lo, x_hi = torch.amin(cxs, -1), torch.amax(cxs, -1)
+        y_lo, y_hi = torch.amin(cys, -1), torch.amax(cys, -1)
+        rho_hi = torch.amax(torch.hypot(cxs, cys), -1)
+        rho_lo = torch.hypot(
+            torch.clamp(torch.maximum(x_lo, -x_hi), min=0.0),
+            torch.clamp(torch.maximum(y_lo, -y_hi), min=0.0))
+        az_cor = torch.atan2(cys, cxs)
+        az_lo, az_hi = torch.amin(az_cor, -1), torch.amax(az_cor, -1)
+        classifiable = (rho_lo > 1e-6) & (az_hi - az_lo < np.pi)
+        el_hi = torch.maximum(torch.atan2(z_hi, rho_lo),
+                              torch.atan2(z_hi, rho_hi))
+        el_lo = torch.minimum(torch.atan2(z_lo, rho_lo),
+                              torch.atan2(z_lo, rho_hi))
+        ua = (az_lo - az0) / daz - 0.5
+        ub = (az_hi - az0) / daz - 0.5
+        va = (el_lo - el0) / dele - 0.5
+        vb = (el_hi - el0) / dele - 0.5
+        u0, u1 = torch.minimum(ua, ub), torch.maximum(ua, ub)
+        v0, v1 = torch.minimum(va, vb), torch.maximum(va, vb)
 
     p0u = _f2i(torch.floor(u0 + 0.5))
     p1u = _f2i(torch.floor(u1 + 0.5))
@@ -411,20 +530,22 @@ def _classify_slabs(layer, safe_rows, row_ok, R, t, img, hiz, cfg):
 
 
 def _feat_image(img: RangeImage, trunc, carving: bool = True):
-    """Planar per-pixel features [C, H*W]: range, (3x3-min range), du, dv,
-    r, g, b. Gradients (clamped to |g| < trunc, zeroed across
-    discontinuities) and colours are rounded through float16 exactly
-    where the JAX module packs them as f16 pairs."""
+    """Planar per-pixel features [..., C, H*W] of images [..., H, W]:
+    range, (3x3-min range), du, dv, r, g, b. Gradients (clamped to |g| <
+    trunc, zeroed across discontinuities) and colours are rounded through
+    float16 exactly where the JAX module packs them as f16 pairs."""
     rng = img.rng
+    h, w = rng.shape[-2:]
+    lead = rng.shape[:-2]
     chans = [rng]
     if carving:
-        chans.append(-F.max_pool2d(-rng[None, None], 3, stride=1,
-                                   padding=1)[0, 0])
+        chans.append(-F.max_pool2d(-rng.reshape(-1, 1, h, w), 3, stride=1,
+                                   padding=1).reshape(rng.shape))
     rpad = F.pad(rng, (1, 1, 1, 1), value=_INF)
-    d_up = rpad[1:-1, 2:] - rng
-    d_um = rng - rpad[1:-1, :-2]
-    d_vp = rpad[2:, 1:-1] - rng
-    d_vm = rng - rpad[:-2, 1:-1]
+    d_up = rpad[..., 1:-1, 2:] - rng
+    d_um = rng - rpad[..., 1:-1, :-2]
+    d_vp = rpad[..., 2:, 1:-1] - rng
+    d_vm = rng - rpad[..., :-2, 1:-1]
 
     def clamp_grad(a, b):
         ok_a = torch.isfinite(a) & (a.abs() < trunc)
@@ -437,7 +558,7 @@ def _feat_image(img: RangeImage, trunc, carving: bool = True):
 
     chans += [f16(clamp_grad(d_up, d_um)), f16(clamp_grad(d_vp, d_vm))]
     chans += [f16(img.color[..., c]) for c in range(3)]
-    return torch.stack(chans, 0).reshape(len(chans), -1)
+    return torch.stack(chans, -3).reshape(lead + (len(chans), h * w))
 
 
 def _discover_and_allocate(layer, img, R, t, cfg, hiz,
@@ -458,16 +579,25 @@ def _discover_and_allocate(layer, img, R, t, cfg, hiz,
 
 
 def _scan_terms(layer, R, t, img: RangeImage, cfg, use_color: bool,
-                max_visible_blocks: int, max_mixed_slabs,
-                max_free_slabs=None):
+                max_visible_blocks: int, max_mixed_slabs, feat=None,
+                hiz=None, max_free_slabs=None, allocate: bool = True,
+                acc=None):
     """Allocate + classify + one scan's weighted-update deltas over the
     compacted visible rows: (layer, rows, row_ok, d6 [B, n_slabs,
     n_ch*slab_vox], (pool_ovf, budget_ovf)). Planes of d6: 0 sum w,
-    1 sum w*sdf, 2 sum colour weight, 3-5 sum cw*r/g/b."""
+    1 sum w*sdf, 2 sum colour weight, 3-5 sum cw*r/g/b.
+
+    ``feat``/``hiz``: this image's precomputed ``_feat_image`` /
+    ``_hiz_tables`` (the batch path builds them for all scans at once).
+    ``allocate=False`` only looks blocks up. ``acc``: a batch accumulator
+    (``_batch_acc_init``); contributions then add straight into it at
+    pool-slab rows and the updated accumulator is returned in place of
+    d6."""
     dev = R.device
-    hiz = _hiz_tables(_pix_eff(img, cfg))
+    if hiz is None:
+        hiz = _hiz_tables(_pix_eff(img, cfg))
     layer, cand, c_ok, pool_ovf, budget_ovf = _discover_and_allocate(
-        layer, img, R, t, cfg, hiz, max_visible_blocks, True)
+        layer, img, R, t, cfg, hiz, max_visible_blocks, allocate)
     mb = layer.max_blocks
 
     slots = vlayer.lookup_blocks(layer, cand)
@@ -519,12 +649,22 @@ def _scan_terms(layer, R, t, img: RangeImage, cfg, use_color: bool,
 
     n_all = B * n_slabs
     n_ch = 6 if use_color else 2
-    # Row n_all is the dump row for dropped slab lanes.
-    d6 = torch.zeros((n_all + 1, n_ch * slab_vox), dtype=torch.float32,
-                     device=dev)
+    if acc is None:
+        # Row n_all is the dump row for dropped slab lanes.
+        d6 = torch.zeros((n_all + 1, n_ch * slab_vox), dtype=torch.float32,
+                         device=dev)
 
-    def to_addr(ids, ok):
-        return torch.where(ok, ids, n_all).to(torch.int64)
+        def to_addr(ids, ok):
+            return torch.where(ok, ids, n_all).to(torch.int64)
+    else:
+        d6 = acc
+        n_lim = mb * n_slabs  # the accumulator's dump row
+
+        def to_addr(ids, ok):
+            # Visible-set slab id -> pool-domain slab id.
+            b = torch.where(ok, ids // n_slabs, 0).to(torch.int64)
+            return torch.where(ok, safe_rows[b] * n_slabs + ids % n_slabs,
+                               n_lim).to(torch.int64)
 
     if cfg.voxel_carving_enabled:
         free_flat = free_s.reshape(-1)
@@ -552,7 +692,8 @@ def _scan_terms(layer, R, t, img: RangeImage, cfg, use_color: bool,
         slab_ids, slab_valid)
 
     carving = cfg.voxel_carving_enabled
-    feat = _feat_image(img, trunc, carving=carving)
+    if feat is None:
+        feat = _feat_image(img, trunc, carving=carving)
     # Out-of-image voxels read nothing: range channels +inf, the others 0
     # (the JAX gather's fill, after its unpack-and-clean step).
     pix = torch.where(inb_m, vi_m.to(torch.int64) * w + ui_m, 0)
@@ -588,8 +729,11 @@ def _scan_terms(layer, R, t, img: RangeImage, cfg, use_color: bool,
     if cfg.use_const_weight:
         w0 = torch.ones_like(sdf)
     else:
-        cos_theta = p_C_m[..., 2] / torch.clamp(r_m, min=1e-6)
-        z_surf = eff_range * cos_theta
+        if img.kind == "pinhole":
+            cos_theta = p_C_m[..., 2] / torch.clamp(r_m, min=1e-6)
+            z_surf = eff_range * cos_theta
+        else:
+            z_surf = eff_range
         w0 = 1.0 / torch.clamp(z_surf * z_surf, min=1e-6)
     if cfg.use_weight_dropoff:
         dropoff_eps = layer.voxel_size
@@ -608,6 +752,8 @@ def _scan_terms(layer, R, t, img: RangeImage, cfg, use_color: bool,
                          0.0)
         planes += [cw] + [cw * pc for pc in pix_color3]
     d6.index_add_(0, to_addr(slab_ids, slab_valid), torch.cat(planes, -1))
+    if acc is not None:
+        return layer, rows, row_ok, d6, (pool_ovf, budget_ovf)
     return (layer, rows, row_ok,
             d6[:n_all].reshape(B, n_slabs, n_ch * slab_vox),
             (pool_ovf, budget_ovf))
@@ -695,18 +841,35 @@ def integrate_range_image(layer, T_G_C, img: RangeImage,
                             max_free_slabs)
 
 
+def _make_image(points_C, colors, kind, resolution, fov_h_rad,
+                fov_up_deg, fov_down_deg):
+    if kind == "pinhole":
+        return build_pinhole_range_image(points_C, colors, resolution,
+                                         fov_h_rad)
+    if kind == "spherical_organized":
+        return build_spherical_range_image_organized(
+            points_C, colors, resolution, fov_up_deg, fov_down_deg)
+    if kind == "spherical":
+        return build_spherical_range_image(points_C, colors, resolution,
+                                           fov_up_deg, fov_down_deg)
+    raise ValueError(f"unknown projective kind {kind!r}")
+
+
 def integrate_pointcloud_projective(
     layer, T_G_C, points_C, colors, cfg: TsdfIntegratorConfig,
     resolution=(320, 240), fov_h_rad: float = float(np.deg2rad(90.0)),
     kind: str = "pinhole", use_color: bool = True,
     max_visible_blocks: int = 512, max_mixed_slabs: int | None = None,
     max_free_slabs: int | None = None,
+    fov_up_deg: float = 25.0, fov_down_deg: float = -25.0,
 ):
-    """Flat-cloud front end: scatter-min pinhole binning, then integrate.
-    Spherical images are not ported yet and raise."""
-    if kind != "pinhole":
-        raise NotImplementedError(f"projective kind {kind!r} is not ported")
-    img = build_pinhole_range_image(points_C, colors, resolution, fov_h_rad)
+    """Point-cloud front end: bin into a range image, then integrate.
+    ``kind``: "pinhole", "spherical" (unordered cloud, scatter binning) or
+    "spherical_organized" (raster-ordered lidar scan, scatter-free).
+    Returns (layer, pool_ovf, budget_ovf); on any overflow the scan's
+    value updates were withheld."""
+    img = _make_image(points_C, colors, kind, resolution, fov_h_rad,
+                      fov_up_deg, fov_down_deg)
     return integrate_range_image(layer, T_G_C, img, cfg, use_color,
                                  max_visible_blocks, max_mixed_slabs,
                                  max_free_slabs)
@@ -724,3 +887,151 @@ def integrate_organized_projective(
     return integrate_range_image(layer, T_G_C, img, cfg, use_color,
                                  max_visible_blocks, max_mixed_slabs,
                                  max_free_slabs)
+
+
+# ---------------------------------------------------------------------------
+# Batched multi-scan integration
+# ---------------------------------------------------------------------------
+#
+# The fused update accumulates (sum w, sum w*sdf, ...) and renormalizes,
+# so K scans in one call equal K sequential calls but for the max_weight
+# clamp, which applies per batch. Unlike the single-scan path the batch
+# is not transactional: it folds whatever it accumulated and returns the
+# overflow flag.
+
+
+def _batch_acc_init(layer, use_color: bool):
+    """Zero batch accumulator in the pool-slab domain: [(mb + 1) *
+    n_slabs, n_ch * slab_vox]; rows from mb * n_slabs on are the dump
+    (one pool row's worth, so a [mb + 1, n_slabs, ...] view has a dump
+    row too)."""
+    _, _, n_slabs, slab_vox = _slab_shape(layer.vps)
+    n_ch = 6 if use_color else 2
+    return torch.zeros(((layer.max_blocks + 1) * n_slabs, n_ch * slab_vox),
+                       dtype=torch.float32, device=layer.device)
+
+
+def _build_batch_images(points_C, colors, cfg, make_img):
+    """All K range images, feature tables and HiZ pyramids in one pass
+    over [K, ...]: (images [K, H, W], feats [K, C, H*W], hiz flats [K, N,
+    4], hiz meta, hiz levels)."""
+    img = make_img(points_C, colors)
+    feats = _feat_image(img, cfg.default_truncation_distance,
+                        carving=cfg.voxel_carving_enabled)
+    flats, meta, levels = _hiz_tables(_pix_eff(img, cfg))
+    return img, feats, flats, meta, levels
+
+
+def _fold_batch_acc(layer, geom, acc, cfg, use_color):
+    """Fold the batch accumulator into the running averages
+    (updateTsdfVoxel, tsdf_integrator.cc:186-208, telescoped over the
+    batch) and adopt the batch's allocation from ``geom``."""
+    mb = layer.max_blocks
+    vpb = layer.voxels_per_block
+    _, _, n_slabs, slab_vox = _slab_shape(layer.vps)
+    trunc = cfg.default_truncation_distance
+    acc = acc[:mb * n_slabs].reshape(mb, n_slabs, -1)
+    d_w = _delta_plane(acc, 0, slab_vox)
+    d_wd = _delta_plane(acc, 1, slab_vox)
+    ch = layer.channels
+    old_d, old_w = ch["tsdf"], ch["weight"]
+    new_w_raw = old_w + d_w
+    touched = d_w > 0.0
+    new_d = torch.clamp((old_d * old_w + d_wd)
+                        / torch.clamp(new_w_raw, min=grid.FLOAT_EPS),
+                        -trunc, trunc)
+    out_d = torch.where(touched, new_d, old_d)
+    out_w = torch.where(touched, torch.clamp(new_w_raw, max=cfg.max_weight),
+                        old_w)
+    if use_color:
+        d_cw = _delta_plane(acc, 2, slab_vox)
+        old_cf = ch["color"]
+        denom_c = torch.clamp(old_w + d_cw, min=grid.FLOAT_EPS)
+        ctouched = d_cw > 0
+        planes = [torch.where(
+            ctouched,
+            (old_cf[:, c::3] * old_w + _delta_plane(acc, 3 + c, slab_vox))
+            / denom_c,
+            old_cf[:, c::3]) for c in range(3)]
+        ch["color"].copy_(torch.stack(planes, -1).reshape(mb, vpb * 3))
+    ch["tsdf"].copy_(out_d)
+    ch["weight"].copy_(out_w)
+    row_touched = touched.any(-1)
+    layer.table = geom.table
+    layer.block_ijk = geom.block_ijk
+    layer.num_blocks = geom.num_blocks
+    layer.block_flags = torch.where(
+        row_touched, vlayer.ACTIVE | vlayer.DIRTY_ALL,
+        geom.block_flags).to(torch.uint8)
+    return layer
+
+
+def _integrate_batch(layer, Rs, ts, points_C, colors, cfg, use_color,
+                     max_visible_blocks, max_mixed_slabs, make_img,
+                     max_free_slabs=None):
+    """Shared K-scan batch core; make_img(points [K, ...], colors) -> a
+    RangeImage of all K images. Returns (layer, overflowed)."""
+    dev = layer.device
+    mb = layer.max_blocks
+    Rs = torch.as_tensor(Rs, dtype=torch.float32, device=dev)
+    ts = torch.as_tensor(ts, dtype=torch.float32, device=dev)
+    geom = dataclasses.replace(layer, channels={})
+    acc = _batch_acc_init(layer, use_color)
+    img, feats, hiz_flats, hiz_meta, hiz_lv = _build_batch_images(
+        points_C, colors, cfg, make_img)
+    # Adding contributions straight into the pool-domain accumulator skips
+    # the per-scan visible-set buffer but loses scatter locality: the JAX
+    # package takes it only for big pools. The sums are the same.
+    direct_acc = mb >= 8192
+    _, _, n_slabs, _ = _slab_shape(layer.vps)
+    acc3 = acc.view(mb + 1, n_slabs, -1)
+    ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    for k in range(Rs.shape[0]):
+        img_k = RangeImage(rng=img.rng[k], color=img.color[k],
+                           params=img.params, kind=img.kind)
+        geom, rows, row_ok, d6, (p_o, b_o) = _scan_terms(
+            geom, Rs[k], ts[k], img_k, cfg, use_color, max_visible_blocks,
+            max_mixed_slabs, feat=feats[k],
+            hiz=(hiz_flats[k], hiz_meta, hiz_lv),
+            max_free_slabs=max_free_slabs,
+            acc=acc if direct_acc else None)
+        ovf = ovf | p_o | b_o
+        if not direct_acc:
+            acc3.index_add_(0, torch.where(row_ok, rows, mb).to(torch.int64),
+                            d6)
+    return _fold_batch_acc(layer, geom, acc, cfg, use_color), ovf
+
+
+def integrate_pointcloud_projective_batch(
+    layer, Rs, ts, points_C, colors, cfg: TsdfIntegratorConfig,
+    resolution=(320, 240), fov_h_rad: float = float(np.deg2rad(90.0)),
+    kind: str = "pinhole", use_color: bool = True,
+    max_visible_blocks: int = 512, max_mixed_slabs: int | None = None,
+    max_free_slabs: int | None = None,
+    fov_up_deg: float = 25.0, fov_down_deg: float = -25.0,
+):
+    """Integrate K posed scans in one call: Rs f32[K,3,3], ts f32[K,3],
+    points_C f32[K,N,3], colors f32[K,N,3]; ``kind`` as in
+    ``integrate_pointcloud_projective``. Returns (layer, overflowed)."""
+    def make_img(pts, cols):
+        return _make_image(pts, cols, kind, resolution, fov_h_rad,
+                           fov_up_deg, fov_down_deg)
+    return _integrate_batch(layer, Rs, ts, points_C, colors, cfg, use_color,
+                            max_visible_blocks, max_mixed_slabs, make_img,
+                            max_free_slabs=max_free_slabs)
+
+
+def integrate_organized_projective_batch(
+    layer, Rs, ts, points_C, colors, cfg: TsdfIntegratorConfig,
+    intrinsics, pool: int = 2, use_color: bool = True,
+    max_visible_blocks: int = 512, max_mixed_slabs: int | None = None,
+    max_free_slabs: int | None = None,
+):
+    """Batched organized-cloud integration: points_C f32[K,H,W,3]
+    raster-ordered, binned by min-pooling. Returns (layer, overflowed)."""
+    def make_img(pts, cols):
+        return build_pinhole_range_image_organized(pts, cols, pool,
+                                                   intrinsics)
+    return _integrate_batch(layer, Rs, ts, points_C, colors, cfg, use_color,
+                            max_visible_blocks, max_mixed_slabs, make_img,
+                            max_free_slabs=max_free_slabs)

@@ -1,20 +1,24 @@
-"""Mapper services, projective method (port of the online-mapping parts
-of voxblox_tpu/server/mapper.py).
+"""Mapper services (port of the online-mapping parts of
+voxblox_tpu/server/mapper.py).
 
-- ``TsdfServer``: posed point clouds -> projective TSDF integration, with
-  the transactional grow-and-retry budget ladder: an overflowed scan
-  applies nothing and is replayed at grown budgets by ``check_overflow``.
+- ``TsdfServer``: posed point clouds -> TSDF integration by one of the
+  ray-casting integrators (``method`` "simple", "merged" or "fast", the
+  default) or projectively (``method="projective"``, pinhole or spherical
+  images) with the transactional grow-and-retry budget ladder: an
+  overflowed scan applies nothing and is replayed at grown budgets by
+  ``check_overflow``. ``max_block_distance_from_body`` drops blocks far
+  from the sensor after every scan.
 - ``EsdfServer``: adds the incremental ESDF; ``insert_pointcloud_and_
-  update_esdf`` is the online step (integrate + incremental ESDF per
-  scan) with overflow flags kept on the device until ``check_overflow``.
+  update_esdf`` is the online step (projective integrate + incremental
+  ESDF per scan) with overflow flags kept on the device until
+  ``check_overflow``.
 
 ``update_mesh`` keeps a device-resident mesh pool up to date (one
 bucket of dirty blocks per call, no host read); ``generate_mesh`` /
 ``export_mesh_layer`` drain it and export a host ``MeshLayer``.
 
 Not ported yet (they raise): ICP, map IO, PLY export, the mesh wire
-message, distance pruning, clear spheres, intensity and the simulation
-server.
+message, clear spheres, intensity and the simulation server.
 """
 
 from __future__ import annotations
@@ -36,6 +40,10 @@ from ..core.config import (
 from ..ops import esdf as esdf_ops
 from ..ops import mesh as mesh_ops
 from ..ops import projective as projective_ops
+from ..ops import tsdf as tsdf_ops
+
+METHODS = ("projective", "simple", "merged", "fast")
+PROJECTIVE_KINDS = ("pinhole", "spherical", "spherical_organized")
 
 
 def _or(acc, flag):
@@ -43,16 +51,15 @@ def _or(acc, flag):
 
 
 class TsdfServer:
-    """Point-cloud -> TSDF mapping service (tsdf_server.cc), projective
-    integration on ``device`` (default CUDA; ``device="cpu"`` for the
-    CPU)."""
+    """Point-cloud -> TSDF mapping service (tsdf_server.cc) on ``device``
+    (default CUDA; ``device="cpu"`` for the CPU)."""
 
     def __init__(
         self,
         map_config: MapConfig = MapConfig(),
         integrator_config: TsdfIntegratorConfig = TsdfIntegratorConfig(),
         mesh_config: MeshIntegratorConfig = MeshIntegratorConfig(),
-        method: str = "projective",
+        method: str = "fast",
         enable_icp: bool = False,
         icp_config=None,
         max_block_distance_from_body: float = 0.0,
@@ -69,16 +76,14 @@ class TsdfServer:
         device=None,
     ):
         self.device = _runtime.resolve_device(device)
-        if method != "projective":
-            raise NotImplementedError(
-                f"method {method!r} is not ported; use 'projective'")
+        if method not in METHODS:
+            raise ValueError(f"method must be one of {METHODS}, not "
+                             f"{method!r}")
+        if projective_kind not in PROJECTIVE_KINDS:
+            raise ValueError(f"projective_kind must be one of "
+                             f"{PROJECTIVE_KINDS}, not {projective_kind!r}")
         if enable_icp:
             raise NotImplementedError("ICP is not ported")
-        if max_block_distance_from_body > 0.0:
-            raise NotImplementedError("distance pruning is not ported")
-        if projective_kind != "pinhole":
-            raise NotImplementedError(
-                f"projective kind {projective_kind!r} is not ported")
         self.map_config = map_config
         self.cfg = integrator_config
         self.mesh_config = mesh_config
@@ -95,11 +100,13 @@ class TsdfServer:
             max_mixed_slabs=projective_max_mixed_slabs,
             max_free_slabs=projective_max_free_slabs,
         )
+        self.max_block_distance = float(max_block_distance_from_body)
         self.max_points = max_points
         self.layer = vlayer.make_layer(
             "tsdf", map_config.voxel_size, vps=map_config.voxels_per_side,
             max_blocks=map_config.max_blocks,
             table_capacity=map_config.table_capacity, device=self.device)
+        self.fast_state = tsdf_ops.make_fast_state(device=self.device)
         # The mesh lives on the device (ops/mesh.MeshPool); the host
         # MeshLayer is only a cache filled on export.
         self.mesh_pool = mesh_ops.make_mesh_pool(
@@ -148,12 +155,24 @@ class TsdfServer:
                   else self._tensor(colors))
         points_C, colors = self._pad(points_C, colors)
         T_G_C = self._pose(T_G_C)
-        self.layer, overflow, budget_ovf = self._integrate(
-            T_G_C, points_C, colors)
-        self._record_scan(T_G_C, points_C, colors, budget_ovf)
+        with record_function(f"integrate_{self.method}"):
+            if self.method == "projective":
+                self.layer, overflow, budget_ovf = self._integrate(
+                    T_G_C, points_C, colors)
+                self._record_scan(T_G_C, points_C, colors, budget_ovf)
+            else:
+                self.layer, self.fast_state, overflow = (
+                    tsdf_ops.integrate_pointcloud(
+                        self.layer, T_G_C, points_C, colors, self.cfg,
+                        method=self.method, state=self.fast_state))
         self._overflow_acc = _or(self._overflow_acc, overflow)
         if (self.num_scans + 1) % self.overflow_check_interval == 0:
             self.check_overflow()
+        if self.max_block_distance > 0.0:
+            self.layer = vlayer.remove_distant_blocks(
+                self.layer, T_G_C[1], self.max_block_distance)
+            self.mesh_layer.clear_distant(_runtime.to_host(T_G_C[1]),
+                                          self.max_block_distance)
         self.num_scans += 1
         return T_G_C
 
@@ -289,6 +308,7 @@ class TsdfServer:
             mc.max_blocks, self.mesh_config.device_tri_cap, self.device)
         self.mesh_layer = mesh_ops.MeshLayer(self.layer.block_size)
         self._mesh_more = None
+        self.fast_state = tsdf_ops.make_fast_state(device=self.device)
         self.num_scans = 0
         self._pending_scans = []
         self._overflow_acc = None
@@ -323,7 +343,6 @@ class EsdfServer(TsdfServer):
         if relax_impl not in ("kernel", "plain"):
             raise ValueError(f"relax_impl must be 'kernel' or 'plain', "
                              f"not {relax_impl!r}")
-        esdf_ops._check_cfg(esdf_config)
         self.esdf_cfg = esdf_config
         self.relax_impl = relax_impl
         self._esdf_region_ovf = None
@@ -340,6 +359,9 @@ class EsdfServer(TsdfServer):
         set bins by min-pooling; flat clouds by scatter-min. Overflow flags
         stay on the device until ``check_overflow``. Returns the outer
         sweep iterations."""
+        if self.method != "projective":
+            raise ValueError("the fused step is projective-only; construct "
+                             "the server with method='projective'")
         points_C = self._tensor(points_C)
         colors = (torch.zeros_like(points_C) if colors is None
                   else self._tensor(colors))

@@ -1,9 +1,9 @@
-"""Analytic simulation objects: exact ray intersection (port of the parts
-of voxblox_tpu/sim/objects.py that render the bench's scene — planes and
-cylinders; spheres and cubes are not ported yet).
+"""Analytic simulation objects: exact signed distance and exact ray
+intersection for spheres, cubes, planes and cylinders (port of
+voxblox_tpu/sim/objects.py).
 
 All objects live in one padded SoA container; per-type formulas are
-computed for every (ray, object) pair and selected by type code.
+computed for every (point or ray, object) pair and selected by type code.
 """
 
 from __future__ import annotations
@@ -14,12 +14,16 @@ import numpy as np
 import torch
 
 EPS = 1e-6
-PLANE, CYLINDER = 2, 3  # the JAX package's type codes
+SPHERE, CUBE, PLANE, CYLINDER = 0, 1, 2, 3  # the JAX package's type codes
 BIG = float("inf")
 
 
 @dataclasses.dataclass
 class ObjectSet:
+    """params per kind: sphere [radius, 0, 0]; cube [sx, sy, sz] (full
+    sides); plane [nx, ny, nz] (unit normal); cylinder [radius, height, 0]
+    (axis +z)."""
+
     kind: torch.Tensor  # int32[N]
     center: torch.Tensor  # f32[N,3]
     params: torch.Tensor  # f32[N,3]
@@ -28,8 +32,6 @@ class ObjectSet:
 
 
 def make_object_set(objs, device) -> ObjectSet:
-    if any(o["kind"] not in (PLANE, CYLINDER) for o in objs):
-        raise NotImplementedError("only planes and cylinders are ported")
     n = max(len(objs), 1)
     kind = np.zeros(n, np.int32)
     center = np.zeros((n, 3), np.float32)
@@ -50,6 +52,92 @@ def _norm(x):
     # vector_norm sums the squares as a fused multiply-add chain, as the
     # JAX CPU backend does for jnp.linalg.norm: the ranges match exactly.
     return torch.linalg.vector_norm(x, dim=-1)
+
+
+def _select(kind, per_kind, shape, device):
+    """Per-object value by type code (BIG where no formula applies)."""
+    out = torch.full(shape, BIG, dtype=torch.float32, device=device)
+    for code, val in per_kind:
+        out = torch.where(kind == code, val, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Signed distance
+# ---------------------------------------------------------------------------
+
+
+def _sphere_dist(p, c, prm):
+    return _norm(c - p) - prm[..., 0]
+
+
+def _cube_dist(p, c, prm):
+    half = prm / 2.0
+    lo = c - half - p
+    hi = p - c - half
+    outside = _norm(torch.maximum(torch.clamp(lo, min=0.0), hi))
+    inside = torch.amax(torch.maximum(lo, hi), dim=-1)
+    return torch.where(outside < EPS, inside, outside)
+
+
+def _plane_dist(p, c, prm):
+    n = prm
+    d = -torch.sum(n * c, dim=-1)
+    return torch.sum(n * p, dim=-1) + d / _norm(n)
+
+
+def _cylinder_dist(p, c, prm):
+    r = prm[..., 0]
+    h = prm[..., 1]
+    dz = p[..., 2] - c[..., 2]
+    radial2 = torch.sum((p[..., :2] - c[..., :2]) ** 2, dim=-1)
+    radial = torch.sqrt(radial2)
+    in_band = dz.abs() <= h / 2.0
+    cap_dz = dz.abs() - h / 2.0
+    side = radial - r
+    corner = torch.sqrt(torch.clamp(radial2 - r * r, min=0.0)
+                        + cap_dz * cap_dz)
+    return torch.where(in_band, side, corner)
+
+
+def object_distances(objects: ObjectSet, points):
+    """points f32[...,3] -> distances f32[..., N] to every object."""
+    p = points[..., None, :]
+    c = objects.center
+    prm = objects.params
+    d = _select(objects.kind, (
+        (SPHERE, _sphere_dist(p, c, prm)),
+        (CUBE, _cube_dist(p, c, prm)),
+        (PLANE, _plane_dist(p, c, prm)),
+        (CYLINDER, _cylinder_dist(p, c, prm)),
+    ), torch.broadcast_shapes(p.shape, c.shape)[:-1], c.device)
+    return torch.where(objects.valid, d, BIG)
+
+
+# ---------------------------------------------------------------------------
+# Ray intersection: t in [0, inf), miss = +inf
+# ---------------------------------------------------------------------------
+
+
+def _sphere_ray(o, d, c, prm):
+    r = prm[..., 0]
+    oc = o - c
+    b = torch.sum(d * oc, dim=-1)
+    disc = b * b - torch.sum(oc * oc, dim=-1) + r * r
+    t = -b - torch.sqrt(torch.clamp(disc, min=0.0))
+    return torch.where((disc >= 0.0) & (t >= 0.0), t, BIG)
+
+
+def _cube_ray(o, d, c, prm):
+    half = prm / 2.0
+    inv = 1.0 / d  # inf on zero components (IEEE slab method)
+    t0 = (c - half - o) * inv
+    t1 = (c + half - o) * inv
+    tmin = torch.amax(torch.minimum(t0, t1), dim=-1)
+    tmax = torch.amin(torch.maximum(t0, t1), dim=-1)
+    hit = tmax >= torch.clamp(tmin, min=0.0)
+    t = torch.where(tmin >= 0.0, tmin, tmax)
+    return torch.where(hit & (t >= 0.0), t, BIG)
 
 
 def _plane_ray(o, d, c, prm):
@@ -98,9 +186,10 @@ def object_ray_intersections(objects: ObjectSet, origins, directions):
     d = directions[..., None, :]
     c = objects.center
     prm = objects.params
-    k = objects.kind
-    t = torch.full(torch.broadcast_shapes(o.shape, c.shape)[:-1], BIG,
-                   dtype=torch.float32, device=c.device)
-    for code, fn in ((CYLINDER, _cylinder_ray), (PLANE, _plane_ray)):
-        t = torch.where(k == code, fn(o, d, c, prm), t)
+    t = _select(objects.kind, (
+        (SPHERE, _sphere_ray(o, d, c, prm)),
+        (CUBE, _cube_ray(o, d, c, prm)),
+        (PLANE, _plane_ray(o, d, c, prm)),
+        (CYLINDER, _cylinder_ray(o, d, c, prm)),
+    ), torch.broadcast_shapes(o.shape, c.shape)[:-1], c.device)
     return torch.where(objects.valid, t, BIG)

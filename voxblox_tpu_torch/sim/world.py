@@ -1,9 +1,12 @@
-"""Simulation world: synthetic depth scans (port of the scan-rendering
-parts of voxblox_tpu/sim/world.py).
+"""Simulation world: synthetic depth and lidar scans and analytic
+distances (port of voxblox_tpu/sim/world.py, without the ground-truth
+layers).
 
 Pinhole rays follow the reference pixel convention (focal = W / (2 tan
 (fov/2))); ``organized_pointcloud_from_transform`` renders the raster-
-ordered [H, W, 3] clouds the online bench feeds the mapper.
+ordered [H, W, 3] clouds the online bench feeds the mapper, and
+``spherical_pointcloud_from_transform`` the ring-major scans of a
+spinning lidar.
 """
 
 from __future__ import annotations
@@ -23,6 +26,14 @@ from .objects import ObjectSet, make_object_set
 class SimulationWorld:
     objects: List[dict] = dataclasses.field(default_factory=list)
 
+    def add_sphere(self, center, radius, color=(255, 255, 255)):
+        self.objects.append(dict(kind=sim_objects.SPHERE, center=center,
+                                 params=(radius, 0, 0), color=color))
+
+    def add_cube(self, center, size, color=(255, 255, 255)):
+        self.objects.append(dict(kind=sim_objects.CUBE, center=center,
+                                 params=size, color=color))
+
     def add_plane(self, center, normal, color=(255, 255, 255)):
         n = np.asarray(normal, np.float64)
         n = n / np.linalg.norm(n)
@@ -36,8 +47,23 @@ class SimulationWorld:
     def add_ground_level(self, height, color=(127, 127, 127)):
         self.add_plane((0.0, 0.0, height), (0.0, 0.0, 1.0), color)
 
+    def add_plane_boundaries(self, x_min, x_max, y_min, y_max):
+        """Four inward-facing walls (simulation_world.cc:35-48)."""
+        self.add_plane((x_min, 0.0, 0.0), (1.0, 0.0, 0.0))
+        self.add_plane((x_max, 0.0, 0.0), (-1.0, 0.0, 0.0))
+        self.add_plane((0.0, y_min, 0.0), (0.0, 1.0, 0.0))
+        self.add_plane((0.0, y_max, 0.0), (0.0, -1.0, 0.0))
+
     def freeze(self, device=None) -> ObjectSet:
         return make_object_set(self.objects, _runtime.resolve_device(device))
+
+
+def distance_to_point(objects: ObjectSet, points, max_dist):
+    """Min distance over objects, capped at ``max_dist``, and the colour
+    of the nearest object (getDistanceToPoint)."""
+    d = sim_objects.object_distances(objects, points)
+    dmin, arg = torch.min(d, dim=-1)
+    return torch.clamp(dmin, max=max_dist), objects.color[arg]
 
 
 def rotation_from_two_vectors(a, b):
@@ -105,6 +131,17 @@ def pointcloud_from_viewpoint(objects: ObjectSet, view_origin,
     return origin + dirs * tmin[:, None], colors, valid
 
 
+def pointcloud_from_transform(objects: ObjectSet, T_G_C, camera_res,
+                              fov_h_rad, max_dist):
+    """Reference getPointcloudFromTransform: view direction R @ +z, origin
+    the translation. Returns world-frame (points, colors, valid)."""
+    R, tr = T_G_C
+    R = torch.as_tensor(R, dtype=torch.float32, device=objects.center.device)
+    view = R @ torch.tensor([0.0, 0.0, 1.0], device=R.device)
+    return pointcloud_from_viewpoint(objects, tr, view, camera_res,
+                                     fov_h_rad, max_dist)
+
+
 def organized_pointcloud_from_transform(objects: ObjectSet, T_G_C,
                                         camera_res, fov_h_rad, max_dist):
     """Raster-ordered sensor-frame scan: (points_C f32[H,W,3] (0 where
@@ -126,6 +163,32 @@ def organized_pointcloud_from_transform(objects: ObjectSet, T_G_C,
     points_C = dirs_C * tmin[:, None]
     return (points_C.reshape(h, w, 3), colors.reshape(h, w, 3),
             valid.reshape(h, w), (focal, focal, cx, cy))
+
+
+def spherical_pointcloud_from_transform(objects: ObjectSet, T_G_C,
+                                        resolution, fov_up_deg: float,
+                                        fov_down_deg: float, max_dist):
+    """Velodyne-style scan, ``resolution`` = (W azimuth bins, H beams):
+    beam (v, u) points along azimuth -pi + (u+0.5)*2pi/W and elevation
+    fov_down + (v+0.5)*delta (sensor frame, +x forward, +z up). Returns
+    (points_C f32[W*H, 3] ring-major, 0 where no return, colors, valid)."""
+    w, h = resolution
+    dev = objects.center.device
+    el0 = np.deg2rad(fov_down_deg)
+    el1 = np.deg2rad(fov_up_deg)
+    az = -np.pi + (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) \
+        * (2 * np.pi / w)
+    el = el0 + (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) \
+        * ((el1 - el0) / h)
+    ee, aa = torch.meshgrid(el, az, indexing="ij")  # [h, w]
+    dirs_C = torch.stack([torch.cos(ee) * torch.cos(aa),
+                          torch.cos(ee) * torch.sin(aa), torch.sin(ee)],
+                         dim=-1).reshape(-1, 3)
+    R, tr = T_G_C
+    R = torch.as_tensor(R, dtype=torch.float32, device=dev)
+    origin = torch.as_tensor(tr, dtype=torch.float32, device=dev)
+    tmin, colors, valid = _cast(objects, origin, dirs_C @ R.T, max_dist)
+    return dirs_C * tmin[:, None], colors, valid
 
 
 def world_points_to_sensor(T_G_C, points_G, valid):
