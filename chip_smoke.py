@@ -6,7 +6,8 @@ with the unit and the strided schedule (bench.py's ESDF section), the
 2 cm stress loop with a mesh update every scan (benchmarks/
 stress_bench.py), the batched TSDF throughput path (bench.py section 1),
 the velodyne street map (bench.py's velodyne section), the three
-ray-casting integrators, the full-Euclidean ESDF and the map queries.
+ray-casting integrators, the full-Euclidean ESDF, the map queries, map
+files, mesh messages, ICP and the command line's bag replay.
 
     python3 chip_smoke.py             # the check (one card, a few minutes)
     python3 chip_smoke.py --profile   # + torch.profiler windows
@@ -53,6 +54,28 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
  13 raycast  TsdfServer(method=fast/merged/simple) on the orbit's flat
              640x480 clouds against the analytic scene; at 160x120 the
              card's maps against the port's on the CPU
+ 14 io       (after 9) EsdfServer.save_map of the phase-3 maps to .vxblx
+             (TSDF + ESDF appended) and .npz, loaded back into fresh
+             servers on the card: the same blocks, floats bit for bit,
+             ESDF flags and parents equal, colour after its uint8
+             rounding; the command line in process on the .vxblx file
+             (info, mesh, tsdf-to-esdf against update_esdf_batch of the
+             loaded TSDF, traversable); after 15 the same save and load
+             of the 2 cm stress map (seconds and MB of each)
+ 15 meshmsg  (after 10) 8 more stress steps, publish_mesh_msg() after
+             each into a subscriber MeshLayer, which must then hold
+             export_mesh_layer()'s blocks and triangle counts, vertices
+             within the quantization step; bytes and ms per publish
+ 16 icp      TsdfServer(method="fast", enable_icp=True) at 5 cm on the flat
+             640x480 orbit clouds: 8 scans at their true poses, then scans
+             2 deg of yaw and 5 cm off, refined by tests/test_icp.py's
+             margins; ms and host syncs (at most 2) per ICP call; the first
+             call again on a CPU copy of the layer, R and t within 1e-4
+ 17 replay   the 32 orbit scans written as a ROS bag (640x480 PointCloud2
+             + TransformStamped), replayed by `cli replay --method fast
+             --esdf` into a map and a mesh; the map against the analytic
+             scene; then tests/data/cow_fixture.bag replayed on the card
+             and on the CPU (same blocks, at most 0.2% of voxels off)
 Prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -62,9 +85,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -78,7 +103,7 @@ if not torch.cuda.is_available():
 from voxblox_tpu_torch import _runtime  # noqa: E402
 from voxblox_tpu_torch.core import layer as vlayer  # noqa: E402
 from voxblox_tpu_torch.core.config import (  # noqa: E402
-    EsdfIntegratorConfig, MapConfig, MeshIntegratorConfig,
+    EsdfIntegratorConfig, IcpConfig, MapConfig, MeshIntegratorConfig,
     TsdfIntegratorConfig)
 from voxblox_tpu_torch.ops import mesh as mesh_ops  # noqa: E402
 from voxblox_tpu_torch.ops import esdf as esdf_ops  # noqa: E402
@@ -726,7 +751,7 @@ def stress_phase(scans, intr, dev, profile):
     assert torch.isfinite(esdf).all()
     assert float(esdf.abs().max()) <= 1.0 + 1e-6
     res["esdf_rebuild"] = stress_rebuild_check(srv, dev)
-    return res
+    return res, srv
 
 
 def stress_rebuild_check(srv, dev):
@@ -1144,6 +1169,42 @@ def velodyne_phase(dev, profile=False):
 RAYCAST_SCANS = {"fast": (2, 12), "merged": (1, 4), "simple": (1, 4)}
 
 
+def orbit_objects(dev):
+    w = sw.SimulationWorld()
+    w.add_cylinder((0.0, 0.0, 2.0), 2.0, 4.0, color=(0, 255, 0))
+    w.add_ground_level(0.0)
+    return w.freeze(dev)
+
+
+def analytic_errors(layer, objs, trunc):
+    """A TSDF map against the analytic scene (tests/test_tsdf_integration.
+    py:90-91): every observed voxel not behind the surface, its distance
+    against the scene's, clamped to the truncation."""
+    obs = tsdf_observed(layer)
+    rows, vox = torch.nonzero(obs, as_tuple=True)
+    lin = vox.to(torch.int32)
+    v = layer.vps
+    local = torch.stack([lin % v, (lin // v) % v, lin // (v * v)], -1)
+    centres = ((layer.block_ijk[rows] * v + local).to(torch.float32)
+               + 0.5) * layer.voxel_size
+    gt, _ = sw.distance_to_point(objs, centres, trunc)
+    gt = torch.clamp(gt, min=-trunc)
+    d = layer.channels["tsdf"][rows, vox]
+    keep = d >= -trunc + 1e-6  # kIgnoreErrorBehindTestSurface
+    err = (d - gt)[keep]
+    return dict(observed_voxels=int(obs.sum()),
+                evaluated_voxels=int(keep.sum()),
+                rmse=float(err.pow(2).mean().sqrt()),
+                max_err=float(err.abs().max()))
+
+
+def check_analytic(acc, trunc, what):
+    """The ray-casting contract: rmse under 2 voxels, max error under 4
+    truncations, enough voxels evaluated."""
+    assert acc["evaluated_voxels"] > MIN_OBSERVED // 4, what
+    assert acc["rmse"] < 2 * VOXEL and acc["max_err"] < 4 * trunc + 1e-6, what
+
+
 def raycast_phase(scans, dev, profile=False):
     """TsdfServer(method=...) on the orbit's flat 640x480 clouds (307,200
     points, 5 m rays): ms/scan after warm-up scans, the map against the
@@ -1155,10 +1216,7 @@ def raycast_phase(scans, dev, profile=False):
     trunc = 4 * VOXEL
     tcfg = TsdfIntegratorConfig(default_truncation_distance=trunc,
                                 max_ray_length_m=5.0)
-    w = sw.SimulationWorld()
-    w.add_cylinder((0.0, 0.0, 2.0), 2.0, 4.0, color=(0, 255, 0))
-    w.add_ground_level(0.0)
-    objs = w.freeze(dev)
+    objs = orbit_objects(dev)
     flat = [(s[0], s[1], s[2].reshape(-1, 3), s[3].reshape(-1, 3))
             for s in scans]
 
@@ -1189,29 +1247,13 @@ def raycast_phase(scans, dev, profile=False):
                 keep=False)
             log("raycast fast profile: " + json.dumps(prof))
         layer = srv.layer
-        obs = tsdf_observed(layer)
-        rows, vox = torch.nonzero(obs, as_tuple=True)
-        lin = vox.to(torch.int32)
-        v = layer.vps
-        local = torch.stack([lin % v, (lin // v) % v, lin // (v * v)], -1)
-        centres = ((layer.block_ijk[rows] * v + local).to(torch.float32)
-                   + 0.5) * VOXEL
-        gt, _ = sw.distance_to_point(objs, centres, trunc)
-        gt = torch.clamp(gt, min=-trunc)
-        d = layer.channels["tsdf"][rows, vox]
-        keep = d >= -trunc + 1e-6  # kIgnoreErrorBehindTestSurface
-        err = (d - gt)[keep]
-        rmse = float(err.pow(2).mean().sqrt())
-        max_err = float(err.abs().max())
+        acc = analytic_errors(layer, objs, trunc)
         res[method] = dict(ms_per_scan=ms, scans_timed=n_timed,
-                           blocks=_runtime.host_int(layer.num_blocks),
-                           observed_voxels=int(obs.sum()),
-                           evaluated_voxels=int(keep.sum()), rmse=rmse,
-                           max_err=max_err)
-        log(f"raycast {method}: {ms:.1f} ms/scan, rmse {rmse:.4f} m, "
-            f"max {max_err:.3f} m over {int(keep.sum())} voxels")
-        assert int(keep.sum()) > MIN_OBSERVED // 4, (method, res[method])
-        assert rmse < 2 * VOXEL and max_err < 4 * trunc + 1e-6, res[method]
+                           blocks=_runtime.host_int(layer.num_blocks), **acc)
+        log(f"raycast {method}: {ms:.1f} ms/scan, rmse {acc['rmse']:.4f} m, "
+            f"max {acc['max_err']:.3f} m over {acc['evaluated_voxels']} "
+            "voxels")
+        check_analytic(acc, trunc, (method, res[method]))
         del srv
     res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
 
@@ -1248,6 +1290,468 @@ def raycast_phase(scans, dev, profile=False):
     log("raycast: " + json.dumps(res))
     return res
 
+
+
+# ---------------------------------------------------------------------------
+# Phases 14-17: map files, mesh messages, ICP, bag replay
+# ---------------------------------------------------------------------------
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def assert_same_blocks(a, b, what, wire=True):
+    """Two layers hold the same blocks (by index, in any rows) with the
+    same voxels: floats bit for bit, the ESDF flags and the parent equal;
+    after the .vxblx wire (``wire``) only the four wire flags, and colour
+    after its uint8 rounding. Returns the number of blocks."""
+    rows = torch.nonzero(a.active_mask())[:, 0]
+    n = _runtime.host_int(b.active_mask().sum())
+    assert n == len(rows), (what, n, len(rows))
+    slots = vlayer.lookup_blocks(b, a.block_ijk[rows]).long()
+    assert bool((slots >= 0).all()), what
+    for name, ca in a.channels.items():
+        x, y = ca[rows], b.channels[name][slots]
+        if wire and name == "color":
+            x = torch.clamp(torch.round(x), 0, 255)
+        elif wire and name == "esdf_flags":
+            x = x & 15
+        assert torch.equal(_bits(x), _bits(y)), (what, name)
+    return len(rows)
+
+
+def _file_mb(path):
+    size = os.path.getsize(path)
+    if os.path.exists(path + ".esdf.npz"):
+        size += os.path.getsize(path + ".esdf.npz")
+    return size / 1e6
+
+
+def io_phase(srv, dev, tmp, tag, with_cli):
+    """EsdfServer.save_map to .vxblx (TSDF + ESDF appended) and to .npz,
+    each loaded back into a fresh server on the card and compared block
+    by block; with ``with_cli`` the command line in process on the .vxblx
+    file: info, mesh, tsdf-to-esdf (its ESDF against update_esdf_batch of
+    the loaded TSDF) and traversable."""
+    from voxblox_tpu_torch.io import layer_io, ply
+    from voxblox_tpu_torch.server import cli
+
+    res = {}
+    for ext in ("vxblx", "npz"):
+        path = os.path.join(tmp, f"{tag}.{ext}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.save_map(path)
+        save_s = time.perf_counter() - t0
+        fresh = EsdfServer(map_config=srv.map_config,
+                           integrator_config=srv.cfg,
+                           esdf_config=srv.esdf_cfg, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.load_map(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        wire = ext == "vxblx"
+        blocks = assert_same_blocks(srv.layer, fresh.layer, (tag, ext, "tsdf"),
+                                    wire)
+        assert_same_blocks(srv.esdf_layer, fresh.esdf_layer,
+                           (tag, ext, "esdf"), wire)
+        if ext == "npz":  # a checkpoint comes back row for row
+            for k in vlayer._TABLE_FIELDS:
+                assert torch.equal(getattr(srv.layer.table, k),
+                                   getattr(fresh.layer.table, k)), k
+        res[ext] = dict(save_s=save_s, load_s=load_s, mb=_file_mb(path),
+                        blocks=blocks)
+        del fresh
+    if with_cli:
+        path = os.path.join(tmp, f"{tag}.vxblx")
+        card = ["--device", str(dev), "--max-blocks", str(MAX_BLOCKS)]
+        t0 = time.perf_counter()
+        assert cli.main(["info", path, "--device", str(dev)]) == 0
+        heads = [(h.type, n) for h, n in layer_io.read_headers(path)]
+        assert heads == [("tsdf", res["vxblx"]["blocks"]),
+                         ("esdf", res["vxblx"]["blocks"])], heads
+        mesh_path = os.path.join(tmp, f"{tag}_mesh.ply")
+        assert cli.main(["mesh", path, mesh_path] + card) == 0
+        verts = ply.read_ply(mesh_path)["vertices"]
+        assert len(verts) > 1000 and np.isfinite(verts).all()
+        out = os.path.join(tmp, f"{tag}_esdf.vxblx")
+        assert cli.main(["tsdf-to-esdf", path, out] + card) == 0
+        tsdf = layer_io.load_layer(path, "tsdf", max_blocks=MAX_BLOCKS,
+                                   device=dev)
+        ref, ovf, _ = esdf_ops.update_from_tsdf_batch(
+            vlayer.make_layer("esdf", tsdf.voxel_size, vps=tsdf.vps,
+                              max_blocks=tsdf.max_blocks, device=dev),
+            tsdf, EsdfIntegratorConfig(max_distance_m=2.0,
+                                       default_distance_m=2.0))
+        assert not _runtime.host_bool(ovf)
+        got = layer_io.load_layer(out, "esdf", max_blocks=MAX_BLOCKS,
+                                  device=dev)
+        assert_same_blocks(ref, got, (tag, "tsdf-to-esdf"))
+        trav = os.path.join(tmp, f"{tag}_trav.ply")
+        assert cli.main(["traversable", path, trav, "--radius", "0.3"]
+                        + card) == 0
+        n_trav = len(ply.read_ply(trav)["vertices"])
+        want, _ = maps.EsdfMap(srv.esdf_layer, srv.map_config).\
+            traversable_points(0.3)
+        assert n_trav == len(want) > 0, (n_trav, len(want))
+        res["cli"] = dict(seconds=time.perf_counter() - t0,
+                          mesh_vertices=len(verts),
+                          traversable_points=n_trav)
+    log(f"io {tag}: " + json.dumps(res))
+    return res
+
+
+def mesh_msg_phase(srv, scans):
+    """Eight more stress steps, each followed by publish_mesh_msg() into a
+    subscriber MeshLayer (after one publish of everything pending); the
+    subscriber then holds export_mesh_layer()'s blocks and triangle
+    counts, every vertex within the wire's quantization step."""
+    from voxblox_tpu_torch.io import mesh_msg
+
+    sub = mesh_ops.MeshLayer(srv.layer.block_size)
+    first = srv.publish_mesh_msg()
+    mesh_msg.apply_mesh_msg(sub, mesh_msg.deserialize_mesh_msg(first))
+    ms, sizes, blocks, syncs = [], [], [], []
+    for i in range(8):
+        stress_step(srv, scans[(STRESS_TIMED + i) % len(scans)])
+        torch.cuda.synchronize()
+        s0 = _runtime.SYNCS
+        t0 = time.perf_counter()
+        data = srv.publish_mesh_msg()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        syncs.append(_runtime.SYNCS - s0)
+        msg = mesh_msg.deserialize_mesh_msg(data)
+        sizes.append(len(data))
+        blocks.append(len(msg.blocks))
+        mesh_msg.apply_mesh_msg(sub, msg)
+    # A deferred overflow check may replay scans: publish what it changed.
+    srv.check_overflow()
+    last = srv.publish_mesh_msg()
+    mesh_msg.apply_mesh_msg(sub, mesh_msg.deserialize_mesh_msg(last))
+    ml = srv.export_mesh_layer()
+    assert set(sub.blocks) == set(ml.blocks)
+    # Rows that overflowed the pool's triangle cap are marched densely
+    # when they are published and again on export, from the neighbours'
+    # voxels of that moment: a neighbour updated in between moves their
+    # border vertices. Their vertices are recorded, not held.
+    ovf = _runtime.to_host(srv.mesh_pool.overflow_rows
+                           & srv.layer.active_mask())
+    ijk = _runtime.to_host(srv.layer.block_ijk)
+    dense = {tuple(int(v) for v in ijk[r]) for r in np.flatnonzero(ovf)}
+    step = srv.layer.block_size / 65535.0 + 1e-6
+    worst = worst_dense = 0.0
+    for key, blk in ml.blocks.items():
+        got = sub.blocks[key].vertices
+        assert got.shape == blk.vertices.shape, key
+        err = float(np.abs(got - blk.vertices).max())
+        if key in dense:
+            worst_dense = max(worst_dense, err)
+        else:
+            worst = max(worst, err)
+    assert worst <= step, (worst, step)
+    res = dict(first_publish_bytes=len(first), last_publish_bytes=len(last),
+               bytes_per_publish=sizes,
+               blocks_per_publish=blocks, ms_per_publish=ms,
+               host_syncs_per_publish=syncs, subscriber_blocks=len(sub.blocks),
+               max_vertex_err=worst, quantization_step=step,
+               dense_rows=len(dense), max_vertex_err_dense_rows=worst_dense)
+    log("mesh messages: " + json.dumps(res))
+    return res
+
+
+ICP_TRUE_SCANS = 8
+# tests/test_icp.py's configuration (:56-58).
+ICP_CONFIG = IcpConfig(mini_batch_size=64, inital_translation_weighting=10.0,
+                       inital_rotation_weighting=10.0)
+ICP_SLOW_S = 20.0  # past this a call, the phase refines one scan only
+
+
+def _yaw(deg):
+    a = np.deg2rad(deg)
+    return torch.tensor([[np.cos(a), -np.sin(a), 0.0],
+                         [np.sin(a), np.cos(a), 0.0], [0.0, 0.0, 1.0]],
+                        dtype=torch.float32)
+
+
+def icp_phase(scans, dev):
+    """TsdfServer(method="fast", enable_icp=True) at the online cell's
+    5 cm settings on the orbit's flat 640x480 clouds: 8 scans around the
+    orbit at their true poses (ICP off), then scans between them whose
+    given pose is 2 deg of yaw and 5 cm off. Each call's time and host
+    reads are recorded with its errors before and after (the orbit's
+    cylinder is symmetric about the yaw axis, so those errors are not
+    held to a margin), and the first call is repeated on a CPU copy of
+    the layer (the same batch order). The margins of tests/test_icp.py
+    are held on that test's own scene and pose (``icp_margins``)."""
+    from voxblox_tpu_torch.ops import icp as icp_ops
+    from voxblox_tpu_torch.server import mapper
+    from voxblox_tpu_torch.utils import lie
+
+    calls = []
+    run = icp_ops.run_icp
+
+    def timed(layer, points, T, cfg):
+        torch.cuda.synchronize()
+        s0 = _runtime.SYNCS
+        t0 = time.perf_counter()
+        out = run(layer, points, T, cfg)
+        torch.cuda.synchronize()
+        calls.append(dict(s=time.perf_counter() - t0,
+                          syncs=_runtime.SYNCS - s0,
+                          args=(cpu_copy(layer), points.cpu(),
+                                (T[0].cpu(), T[1].cpu()), cfg) if not calls
+                          else None, out=out))
+        return out
+
+    trunc = 4 * VOXEL
+    srv = TsdfServer(
+        map_config=MapConfig(voxel_size=VOXEL, max_blocks=MAX_BLOCKS),
+        integrator_config=TsdfIntegratorConfig(
+            default_truncation_distance=trunc, max_ray_length_m=5.0),
+        method="fast", enable_icp=True, icp_config=ICP_CONFIG, device=dev)
+    flat = [(s[0], s[1], s[2].reshape(-1, 3), s[3].reshape(-1, 3))
+            for s in scans]
+    step = len(flat) // ICP_TRUE_SCANS
+    srv.enable_icp = False
+    for R, t, p, c in flat[::step]:
+        srv.insert_pointcloud((R, t), p, c)
+    srv.enable_icp = True
+    off = torch.tensor([0.03, -0.04, 0.0], device=dev)
+    errs = []
+    mapper.icp_ops.run_icp = timed
+    try:
+        for R, t, p, c in flat[step // 2::2 * step][:3]:
+            R_bad, t_bad = _yaw(2.0).to(dev) @ R, t + off
+            R_ref, t_ref = srv.insert_pointcloud((R_bad, t_bad), p, c)
+            errs.append(dict(
+                t_before=float((t_bad - t).norm()),
+                t_after=float((t_ref - t).norm()),
+                r_before=float(lie.so3_log(R_bad @ R.T).norm()),
+                r_after=float(lie.so3_log(R_ref @ R.T).norm())))
+            if calls[-1]["s"] > ICP_SLOW_S:
+                break
+    finally:
+        mapper.icp_ops.run_icp = run
+    srv.check_overflow()
+    # The first call again on the CPU, in the same batch order.
+    args, out = calls[0]["args"], calls[0]["out"]
+    t0 = time.perf_counter()
+    cpu = run(*args)
+    cpu_s = time.perf_counter() - t0
+    dR = float((out.R.cpu() - cpu.R).abs().max())
+    dt = float((out.t.cpu() - cpu.t).abs().max())
+    # tests/test_icp.py's case, at its size and at full size.
+    margins = {"64x48": icp_margins(dev, (64, 48)),
+               "640x480": icp_margins(dev, RES)}
+    res = dict(points=int(flat[0][2].shape[0]),
+               steps=max(1, int(flat[0][2].shape[0]
+                                * srv.icp_config.subsample_keep_ratio)
+                         // srv.icp_config.mini_batch_size),
+               ms_per_call=[c["s"] * 1e3 for c in calls],
+               host_syncs_per_call=[c["syncs"] for c in calls],
+               num_updates=[_runtime.host_int(c["out"].num_updates)
+                            for c in calls],
+               errors=errs, cpu_s=cpu_s, card_vs_cpu_R=dR, card_vs_cpu_t=dt,
+               margins=margins)
+    log("icp: " + json.dumps(res))
+    assert all(c["syncs"] <= 2 for c in calls), res
+    assert dR <= 1e-4 and dt <= 1e-4, res
+    assert all(np.isfinite(list(e.values())).all() for e in errs), errs
+    check_icp_margins(margins["64x48"])
+    # At full size the rotation meets the margins; the translation error
+    # shrinks, but not to the test's 0.6 of what it was (PERF.md).
+    check_icp_margins(margins["640x480"], translation=False)
+    assert margins["640x480"]["t_after"] < margins["640x480"]["t_before"]
+    return res
+
+
+def gt_tsdf_layer(objs, voxel, lo, hi, max_dist, vps, dev):
+    """A ground-truth TSDF over [lo, hi] (voxblox_tpu/sim/world.py
+    generate_gt_layer): every voxel centre of the covering blocks gets the
+    scene's distance, floored at -max_dist, weight 1 inside the bounds."""
+    bs = voxel * vps
+    b0 = np.floor((np.asarray(lo) - bs / 2) / bs).astype(np.int64)
+    b1 = np.floor((np.asarray(hi) + bs / 2) / bs).astype(np.int64)
+    blocks = np.stack(np.meshgrid(*[np.arange(b0[i], b1[i] + 1)
+                                    for i in range(3)], indexing="ij"),
+                      -1).reshape(-1, 3)
+    layer = vlayer.make_layer("tsdf", voxel, vps=vps,
+                              max_blocks=len(blocks), device=dev)
+    ijk = torch.as_tensor(blocks, dtype=torch.int32, device=dev)
+    layer, ovf = vlayer.allocate_blocks(
+        layer, ijk, torch.ones(len(blocks), dtype=torch.bool, device=dev))
+    assert not _runtime.host_bool(ovf)
+    rows = vlayer.lookup_blocks(layer, ijk).long()
+    lin = torch.arange(vps ** 3, device=dev)
+    local = torch.stack([lin % vps, (lin // vps) % vps, lin // vps ** 2], -1)
+    centres = ((ijk[:, None, :] * vps + local).to(torch.float32) + 0.5) * voxel
+    d, _ = sw.distance_to_point(objs, centres.reshape(-1, 3), max_dist)
+    inside = ((centres >= torch.tensor(lo, device=dev))
+              & (centres <= torch.tensor(hi, device=dev))).all(-1)
+    layer.channels["tsdf"][rows] = torch.clamp(d, min=-max_dist).view(
+        len(blocks), -1)
+    layer.channels["weight"][rows] = inside.to(torch.float32)
+    return layer
+
+
+def icp_margins(dev, scan_res):
+    """tests/test_icp.py's case: its scene (cube, sphere, ground) as a
+    ground-truth TSDF (0.08 m, vps 8, 0.5 m band), a scan of ``res`` from
+    its pose, the pose given 2 deg of yaw and (5, -4, 3) cm off, run_icp
+    with its configuration. Returns the errors before and after."""
+    from voxblox_tpu_torch.ops import icp as icp_ops
+    from voxblox_tpu_torch.utils import lie
+
+    w = sw.SimulationWorld()
+    w.add_cube((0.0, 0.0, 1.0), (1.5, 2.5, 2.0))
+    w.add_sphere((2.0, -1.0, 1.0), 0.8)
+    w.add_ground_level(0.0)
+    objs = w.freeze(dev)
+    layer = gt_tsdf_layer(objs, 0.08, (-4.0, -4.0, -0.4), (4.0, 4.0, 3.5),
+                          0.5, 8, dev)
+    R = torch.tensor([[0.0, 0.0, 1.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]],
+                     device=dev)
+    t = torch.tensor([-3.0, 0.5, 1.0], device=dev)
+    pts_G, _, valid = sw.pointcloud_from_transform(
+        objs, (R, t), scan_res, np.deg2rad(70.0), 8.0)
+    pts = sw.world_points_to_sensor((R, t), pts_G, valid)
+    R_bad = _yaw(2.0).to(dev) @ R
+    t_bad = t + torch.tensor([0.05, -0.04, 0.03], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = icp_ops.run_icp(layer, pts, (R_bad, t_bad), ICP_CONFIG)
+    torch.cuda.synchronize()
+    e = dict(points=int(pts.shape[0]), s=time.perf_counter() - t0,
+             num_updates=_runtime.host_int(res.num_updates),
+             t_before=float((t_bad - t).norm()),
+             t_after=float((res.t - t).norm()),
+             r_before=float(lie.so3_log(R_bad @ R.T).norm()),
+             r_after=float(lie.so3_log(res.R @ R.T).norm()))
+    log(f"icp margins {scan_res}: " + json.dumps(e))
+    return e
+
+
+def check_icp_margins(e, translation=True):
+    """tests/test_icp.py:66-75: the error cut to 0.6 (translation) and 0.7
+    (rotation) of what it was, and below 4.5 cm and 0.75 deg."""
+    assert e["r_after"] < 0.7 * e["r_before"], e
+    assert e["r_after"] < np.deg2rad(0.75), e
+    if translation:
+        assert e["t_after"] < 0.6 * e["t_before"], e
+        assert e["t_after"] < 0.045, e
+
+
+def _quat(R):
+    """Rotation matrix -> [x, y, z, w] (Shepperd's method)."""
+    m = np.asarray(R, np.float64)
+    tr = np.trace(m)
+    if tr > 0:
+        s = 2.0 * np.sqrt(tr + 1.0)
+        return np.array([(m[2, 1] - m[1, 2]) / s, (m[0, 2] - m[2, 0]) / s,
+                         (m[1, 0] - m[0, 1]) / s, 0.25 * s])
+    i = int(np.argmax(np.diag(m)))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = 2.0 * np.sqrt(1.0 + m[i, i] - m[j, j] - m[k, k])
+    q = np.zeros(4)
+    q[i] = 0.25 * s
+    q[j] = (m[j, i] + m[i, j]) / s
+    q[k] = (m[k, i] + m[i, k]) / s
+    q[3] = (m[k, j] - m[j, k]) / s
+    return q
+
+
+CLOUD_TOPIC = "/camera/depth_registered/points"
+POSE_TOPIC = "/kinect/vrpn_client/estimated_transform"
+# tests/test_rosbag.py's replay of the committed fixture (the fixture's
+# scans are 48x36 at a 60 deg field of view, 5 poses).
+FIXTURE = os.path.join("tests", "data", "cow_fixture.bag")
+FIXTURE_RES = (24, 18)
+
+
+def replay_phase(scans, dev, tmp):
+    """The cow-and-lady path: the orbit's 32 scans written as a ROS bag of
+    640x480 PointCloud2 clouds (xyz + rgb) and TransformStamped poses,
+    replayed by ``cli replay`` (5 cm, 5 m rays, fast, with the ESDF) into
+    a map file and a mesh; the map against the analytic scene. Then the
+    committed fixture replayed as tests/test_rosbag.py does, the card's
+    map against the port's on the CPU."""
+    from voxblox_tpu_torch.io import layer_io, ply, rosbag
+    from voxblox_tpu_torch.server import cli
+    from voxblox_tpu_torch.utils import timing
+
+    msgs = []
+    for i, (R, t, pts, cols) in enumerate(scans):
+        stamp = 100.0 + 0.1 * i
+        msgs.append((CLOUD_TOPIC, "sensor_msgs/PointCloud2", stamp,
+                     rosbag.encode_pointcloud2(
+                         _runtime.to_host(pts.reshape(-1, 3)),
+                         _runtime.to_host(cols.reshape(-1, 3)),
+                         stamp_sec=stamp, frame_id="camera",
+                         height=RES[1])))
+        msgs.append((POSE_TOPIC, "geometry_msgs/TransformStamped", stamp,
+                     rosbag.encode_transform_stamped(
+                         stamp, "world", "kinect", _runtime.to_host(t),
+                         _quat(_runtime.to_host(R)))))
+    bag = os.path.join(tmp, "orbit.bag")
+    rosbag.write_bag(bag, msgs)
+    del msgs
+    out_map = os.path.join(tmp, "orbit.vxblx")
+    out_mesh = os.path.join(tmp, "orbit.ply")
+    timing.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    assert cli.main(["replay", bag, "--voxel-size", str(VOXEL),
+                     "--max-ray-length", "5", "--max-blocks", str(MAX_BLOCKS),
+                     "--method", "fast", "--esdf",
+                     "--output-map", out_map, "--output-mesh", out_mesh,
+                     "--device", str(dev)]) == 0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stages = {k: v["total_s"] for k, v in timing.as_dict().items()}
+    layer = layer_io.load_layer(out_map, "tsdf", max_blocks=MAX_BLOCKS,
+                                device=dev)
+    esdf = layer_io.load_layer(out_map, "esdf", max_blocks=MAX_BLOCKS,
+                               device=dev)
+    trunc = 4 * VOXEL
+    acc = analytic_errors(layer, orbit_objects(dev), trunc)
+    res = dict(scans=len(scans), ms_per_scan=wall / len(scans) * 1e3,
+               stage_host_s=stages, bag_mb=os.path.getsize(bag) / 1e6,
+               map_mb=os.path.getsize(out_map) / 1e6,
+               mesh_vertices=len(ply.read_ply(out_mesh)["vertices"]),
+               blocks=_runtime.host_int(layer.num_blocks),
+               esdf_blocks=_runtime.host_int(esdf.num_blocks), **acc)
+    check_analytic(acc, trunc, res)
+    os.remove(bag)
+
+    # The committed fixture, on the card and on the CPU.
+    out = []
+    for device in (dev, torch.device("cpu")):
+        srv = TsdfServer(
+            MapConfig(voxel_size=0.1, max_blocks=1024),
+            integrator_config=TsdfIntegratorConfig(
+                default_truncation_distance=0.4, max_ray_length_m=8.0),
+            method="projective", projective_resolution=FIXTURE_RES,
+            projective_fov_deg=60.0, device=device)
+        stats = rosbag.run_rosbag(srv, FIXTURE, pointcloud_topic=CLOUD_TOPIC,
+                                  pose_topic=POSE_TOPIC)
+        assert stats["integrated"] == 5, stats
+        out.append(vlayer.layer_to_numpy(srv.layer))
+    a, b = out
+    for k in ("num_blocks", "block_ijk", "block_flags"):
+        assert np.array_equal(a[k], b[k]), k
+    wa, wb = a["channel/weight"], b["channel/weight"]
+    observed = int((wb > 0).sum())
+    off = int(((np.abs(wa - wb) > 1e-5 + 1e-5 * wb)
+               | (np.abs(a["channel/tsdf"] - b["channel/tsdf"])
+                  > 1e-5)).sum())
+    res["fixture_card_vs_cpu"] = dict(blocks=int(a["num_blocks"]),
+                                      observed_voxels=observed,
+                                      voxels_off_by_more_than_1e5=off)
+    log("replay: " + json.dumps(res))
+    assert observed > 2000 and off <= 2e-3 * observed, res
+    return res
 
 def main():
     ap = argparse.ArgumentParser()
@@ -1376,25 +1880,49 @@ def main():
     # 9. Map queries on the phase-3 maps.
     out["queries"] = queries_phase(srv.layer, srv.esdf_layer, dev)
     done("queries")
-    del srv
-    torch.cuda.empty_cache()
 
-    # 10. The 2 cm stress loop, with a mesh update every scan.
-    out["stress"] = stress_phase(scans, intr, dev, args.profile)
-    done("stress")
-    k1_other.append(out["stress"]["esdf_rebuild"]["k1_on_map_data"])
-    out["kernel_other_shapes"] = k1_other
-    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        # 14. Map files of the phase-3 maps, and the command line on them.
+        out["io"] = {"online": io_phase(srv, dev, tmp, "online", True)}
+        done("io online")
+        del srv
+        torch.cuda.empty_cache()
 
-    # 11-13. Batched TSDF, the velodyne street map, ray casting.
-    out["tsdf_batch"] = tsdf_batch_phase(scans, intr, dev, args.profile)
-    done("tsdf batch")
-    torch.cuda.empty_cache()
-    out["velodyne"] = velodyne_phase(dev, args.profile)
-    done("velodyne")
-    torch.cuda.empty_cache()
-    out["raycast"] = raycast_phase(scans, dev, args.profile)
-    done("raycast")
+        # 10. The 2 cm stress loop, with a mesh update every scan.
+        out["stress"], stress_srv = stress_phase(scans, intr, dev,
+                                                 args.profile)
+        done("stress")
+        k1_other.append(out["stress"]["esdf_rebuild"]["k1_on_map_data"])
+        out["kernel_other_shapes"] = k1_other
+
+        # 15. Mesh messages, then 14 on the stress map.
+        out["mesh_msg"] = mesh_msg_phase(stress_srv, scans)
+        done("mesh messages")
+        out["io"]["stress"] = io_phase(stress_srv, dev, tmp, "stress", False)
+        done("io stress")
+        del stress_srv
+        torch.cuda.empty_cache()
+
+        # 11-13. Batched TSDF, the velodyne street map, ray casting.
+        out["tsdf_batch"] = tsdf_batch_phase(scans, intr, dev, args.profile)
+        done("tsdf batch")
+        torch.cuda.empty_cache()
+        out["velodyne"] = velodyne_phase(dev, args.profile)
+        done("velodyne")
+        torch.cuda.empty_cache()
+        out["raycast"] = raycast_phase(scans, dev, args.profile)
+        done("raycast")
+        torch.cuda.empty_cache()
+
+        # 16-17. ICP, bag replay through the command line.
+        out["icp"] = icp_phase(scans, dev)
+        done("icp")
+        torch.cuda.empty_cache()
+        out["replay"] = replay_phase(scans, dev, tmp)
+        done("replay")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as f:

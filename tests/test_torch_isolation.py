@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX and no voxblox_tpu in its sources or its
-import graph, and its entry points refuse to fall back to the CPU."""
+"""The port stands alone: no JAX, no voxblox_tpu and no protobuf package
+in its sources or its import graph (the command line included), and its
+entry points refuse to fall back to the CPU."""
 
 import ast
 import os
@@ -15,7 +16,7 @@ from torch_parity import cuda_device  # noqa: F401  (fixture)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "voxblox_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "voxblox_tpu")
+FORBIDDEN = ("jax", "jaxlib", "voxblox_tpu", "google")
 
 
 def _imports(path):
@@ -42,14 +43,49 @@ def test_import_leaves_jax_out():
             "voxblox_tpu_torch.ops.mesh, voxblox_tpu_torch.ops.marching_cubes, "
             "voxblox_tpu_torch.ops.raycast, voxblox_tpu_torch.ops.tsdf, "
             "voxblox_tpu_torch.ops.interp, voxblox_tpu_torch.models.maps, "
-            "voxblox_tpu_torch.sim.objects; "
+            "voxblox_tpu_torch.sim.objects, voxblox_tpu_torch.ops.icp, "
+            "voxblox_tpu_torch.io.wire, voxblox_tpu_torch.io.layer_io, "
+            "voxblox_tpu_torch.io.npz_io, voxblox_tpu_torch.io.ply, "
+            "voxblox_tpu_torch.io.conversions, "
+            "voxblox_tpu_torch.io.mesh_msg, voxblox_tpu_torch.io.rosbag, "
+            "voxblox_tpu_torch.server.dataset, voxblox_tpu_torch.server.cli, "
+            "voxblox_tpu_torch.utils.lie, voxblox_tpu_torch.utils.planning, "
+            "voxblox_tpu_torch.utils.timing, "
+            "voxblox_tpu_torch.utils.color_maps, "
+            "voxblox_tpu_torch.utils.mesh_vis; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'voxblox_tpu')]; "
+            "('jax', 'jaxlib', 'voxblox_tpu') "
+            "or m.startswith('google.protobuf')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_cli_help_leaves_jax_and_protobuf_out():
+    """``python -m voxblox_tpu_torch.server.cli --help`` runs, and every
+    command's module loads, without jax, voxblox_tpu or google.protobuf."""
+    code = ("import runpy, sys; sys.argv = ['cli', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('voxblox_tpu_torch.server.cli', "
+            "run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "import voxblox_tpu_torch.server.mapper\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'voxblox_tpu') "
+            "or m.startswith('google.protobuf')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "replay" in proc.stdout and "tsdf-to-esdf" in proc.stdout
+    proc = subprocess.run(
+        [sys.executable, "-m", "voxblox_tpu_torch.server.cli", "--help"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "sim-bench" in proc.stdout, proc.stderr
 
 
 def test_no_gpu_means_raise_not_fallback():

@@ -409,8 +409,15 @@ def test_online_steps_with_mesh_match_jax_end_to_end(tmp_path):
     np.testing.assert_allclose(v, z["mesh_v"], atol=1e-5)
     assert np.abs(c.astype(np.int64) - z["mesh_c"]).max() <= 1
     assert int((srv.layer.block_flags & 2 != 0).sum()) == 0
-    with pytest.raises(NotImplementedError):
-        srv.generate_mesh("mesh.ply")
+    # The PLY export: the welded mesh of the same triangles.
+    from voxblox_tpu_torch.io import ply
+
+    path = str(tmp_path / "mesh.ply")
+    srv.generate_mesh(path)
+    written = ply.read_ply(path)
+    assert len(written["faces"]) * 3 == len(v)
+    np.testing.assert_allclose(written["vertices"][written["faces"]].reshape(
+        -1, 3), v, atol=1e-5)
     srv.clear()
     assert int(srv.layer.num_blocks) == 0
     assert int(srv.mesh_pool.counts.sum()) == 0

@@ -345,15 +345,16 @@ def test_two_cm_allocation_and_budget_ladder_match_jax(tmp_path):
     assert ((gw > 0) != (rw > 0)).sum() <= observed * 1e-5
 
 
-def test_unported_requests_raise():
-    """ICP, clear spheres and map/PLY IO still raise; the ray-casting
-    methods, the spherical kinds, full-Euclidean ESDF and distance
-    pruning construct and run one tiny scan."""
+def test_unported_requests_raise(tmp_path):
+    """What is not ported raises (``cli sim-bench``); the ray-casting
+    methods, the spherical kinds, full-Euclidean ESDF, distance pruning,
+    ICP and clear spheres construct and run one tiny scan; map files and
+    PLY export write and read back."""
+    from voxblox_tpu_torch.server import cli
+
     kw = dict(device="cpu")
     with pytest.raises(NotImplementedError):
-        TsdfServer(enable_icp=True, **kw)
-    with pytest.raises(NotImplementedError):
-        EsdfServer(clear_sphere_for_planning=True, **kw)
+        cli.main(["sim-bench", "--device", "cpu"])
     with pytest.raises(ValueError):
         TsdfServer(method="bogus", **kw)
     with pytest.raises(ValueError):
@@ -394,12 +395,35 @@ def test_unported_requests_raise():
     srv = TsdfServer(method="projective", **kw)
     srv.update_mesh()
     assert len(srv.generate_mesh().blocks) == 0
-    with pytest.raises(NotImplementedError):
-        srv.generate_mesh("mesh.ply")
-    with pytest.raises(NotImplementedError):
-        srv.save_map("map.vxblx")
-    with pytest.raises(NotImplementedError):
-        srv.load_map("map.vxblx")
+    # ICP (the second scan is refined) and the clear-sphere prior.
+    icp = TsdfServer(enable_icp=True, **small)
+    for _ in range(2):
+        icp.insert_pointcloud(pose, pts)
+    assert icp.num_scans == 2 and icp.icp_corrected[0].shape == (3, 3)
+    esrv = EsdfServer(clear_sphere_for_planning=True, esdf_config=(
+        EsdfIntegratorConfig(clear_sphere_radius=0.5,
+                             occupied_sphere_radius=1.0)), **small)
+    esrv.insert_pointcloud(pose, pts)
+    hall = (esrv.esdf_layer.channels["esdf_flags"] & 4) != 0
+    assert int(hall.sum()) > 0
+    # Map files and PLY export: write, then read back into a new server.
+    mesh_path = str(tmp_path / "mesh.ply")
+    from voxblox_tpu_torch.io import ply
+
+    n_verts = esrv.generate_mesh(mesh_path).num_vertices()
+    assert len(ply.read_ply(mesh_path)["vertices"]) == n_verts
+    for name in ("map.vxblx", "map.npz"):
+        path = str(tmp_path / name)
+        esrv.save_map(path)
+        back = EsdfServer(esdf_config=esrv.esdf_cfg, **small)
+        back.load_map(path)
+        for a, b in ((esrv.layer, back.layer),
+                     (esrv.esdf_layer, back.esdf_layer)):
+            rows = torch.nonzero(a.active_mask())[:, 0]
+            slots = tlayer.lookup_blocks(b, a.block_ijk[rows]).long()
+            assert int(b.num_blocks) == len(rows) > 0 and (slots >= 0).all()
+            for k, c in a.channels.items():
+                assert torch.equal(c[rows], b.channels[k][slots]), (name, k)
 
 
 def test_default_method_is_fast_as_in_jax():

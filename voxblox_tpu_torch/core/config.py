@@ -81,10 +81,36 @@ class MeshIntegratorConfig:
     march_cube_budget: "int | None" = None
 
 
+@dataclasses.dataclass(frozen=True)
+class IcpConfig:
+    refine_roll_pitch: bool = False
+    mini_batch_size: int = 20
+    min_match_ratio: float = 0.8
+    subsample_keep_ratio: float = 0.5
+    inital_translation_weighting: float = 100.0
+    inital_rotation_weighting: float = 100.0
+
+
+def derive_defaults(
+    voxel_size: float,
+    tsdf: TsdfIntegratorConfig | None = None,
+    esdf: EsdfIntegratorConfig | None = None,
+):
+    """ROS-layer derived defaults: truncation = 4 * voxel_size, ESDF
+    min_distance = truncation / 2 but at least the struct default."""
+    tsdf = tsdf or TsdfIntegratorConfig()
+    truncation = 4.0 * voxel_size
+    tsdf = dataclasses.replace(tsdf, default_truncation_distance=truncation)
+    esdf = esdf or EsdfIntegratorConfig()
+    esdf = dataclasses.replace(
+        esdf, min_distance_m=max(truncation / 2.0, esdf.min_distance_m))
+    return tsdf, esdf
+
+
 _CONFIGS = {
     c.__name__: c
     for c in (MapConfig, TsdfIntegratorConfig, EsdfIntegratorConfig,
-              MeshIntegratorConfig)
+              MeshIntegratorConfig, IcpConfig)
 }
 
 

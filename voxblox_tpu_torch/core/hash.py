@@ -81,16 +81,20 @@ def _set_cells(arr, idx, vals, ok):
     return ext[:cap]
 
 
-def lookup(table: HashTable, w0, w1):
+def lookup(table: HashTable, w0, w1, max_psl: int | None = None):
     """Vectorized lookup -> int32 slots, -1 where missing. Probes
     0..max_psl: the JAX loop also stops early once every lane resolved,
     which changes nothing (resolved lanes keep their result), so reading
-    ``max_psl`` once replaces a sync per probe round."""
+    ``max_psl`` once replaces a sync per probe round. A caller that looks
+    up many times in a table that does not change passes the bound as a
+    host int (read once) and the lookup reads nothing."""
+    if max_psl is None:
+        max_psl = _runtime.host_int(table.max_psl)
     mask = table.capacity - 1
     h = hash_words(w0, w1)
     out = torch.full(w0.shape, -1, dtype=torch.int32, device=w0.device)
     done = torch.zeros(w0.shape, dtype=torch.bool, device=w0.device)
-    for p in range(_runtime.host_int(table.max_psl) + 1):
+    for p in range(max_psl + 1):
         idx = (h + p) & mask
         k1 = table.keys_w1[idx]
         hit = (table.keys_w0[idx] == w0) & (k1 == w1)

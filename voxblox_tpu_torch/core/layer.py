@@ -184,15 +184,18 @@ def cube_rows(layer: VoxelLayer, name: str, rows):
                        + channel_extra(layer, name))
 
 
-def lookup_blocks(layer: VoxelLayer, block_ijk):
-    """int32[...,3] block indices -> int32[...] pool rows (-1 missing)."""
+def lookup_blocks(layer: VoxelLayer, block_ijk, max_psl: int | None = None):
+    """int32[...,3] block indices -> int32[...] pool rows (-1 missing).
+    ``max_psl``: the table's probe bound as a host int, if already read
+    (``vhash.lookup``)."""
     w0, w1 = grid.pack_block_index(block_ijk)
-    return vhash.lookup(layer.table, w0, w1)
+    return vhash.lookup(layer.table, w0, w1, max_psl)
 
 
-def global_voxel_to_flat(layer: VoxelLayer, global_ijk):
+def global_voxel_to_flat(layer: VoxelLayer, global_ijk,
+                         max_psl: int | None = None):
     block, local = grid.split_global(global_ijk, layer.vps)
-    slot = lookup_blocks(layer, block)
+    slot = lookup_blocks(layer, block, max_psl)
     found = slot >= 0
     lin = grid.local_to_linear(local, layer.vps)
     flat = torch.where(found, slot.to(torch.int64) * layer.voxels_per_block
@@ -301,8 +304,9 @@ def dirty_mask(layer: VoxelLayer, bits: int):
 # ---------------------------------------------------------------------------
 
 
-def get_voxels(layer: VoxelLayer, channel: str, global_ijk, fill=0.0):
-    flat, found = global_voxel_to_flat(layer, global_ijk)
+def get_voxels(layer: VoxelLayer, channel: str, global_ijk, fill=0.0,
+               max_psl: int | None = None):
+    flat, found = global_voxel_to_flat(layer, global_ijk, max_psl)
     c = layer.channels[channel]
     extra = channel_extra(layer, channel)
     flatc = c.reshape((-1,) + extra)

@@ -49,19 +49,33 @@ def _corners(low):
                                               low.device)
 
 
-def _corner_validity(layer, corners, found, min_weight: float):
-    """Block present and voxel observed: TSDF weight > min_weight, ESDF or
-    occupancy observed flag."""
-    if layer.layer_type == "tsdf":
-        w, _ = vlayer.get_voxels(layer, "weight", corners)
-        return found & (w > min_weight)
-    if layer.layer_type == "esdf":
-        f, _ = vlayer.get_voxels(layer, "esdf_flags", corners, fill=0)
-        return found & ((f & vlayer.ESDF_OBSERVED) != 0)
-    if layer.layer_type == "occupancy":
-        f, _ = vlayer.get_voxels(layer, "occ_observed", corners, fill=0)
-        return found & (f != 0)
-    return found
+_VALIDITY = {"tsdf": "weight", "esdf": "esdf_flags",
+             "occupancy": "occ_observed"}
+
+
+def _values_and_validity(layer, ijk, channel: str, min_weight: float,
+                         max_psl: int):
+    """Channel values at global voxel indices (0 where the block is
+    missing) and whether each voxel is observed: block present and TSDF
+    weight > min_weight, or the ESDF / occupancy observed flag. One hash
+    lookup serves both gathers."""
+    flat, found = vlayer.global_voxel_to_flat(layer, ijk, max_psl)
+    safe = torch.where(found, flat, 0)
+
+    def gather(name):
+        c = layer.channels[name]
+        return torch.where(found, c.view(-1)[safe], 0).to(c.dtype)
+
+    vals = gather(channel)
+    kind = _VALIDITY.get(layer.layer_type)
+    if kind is None:
+        return vals, found
+    v = gather(kind)
+    if kind == "weight":
+        return vals, found & (v > min_weight)
+    if kind == "esdf_flags":
+        return vals, found & ((v & vlayer.ESDF_OBSERVED) != 0)
+    return vals, found & (v != 0)
 
 
 def _distance_channel(layer) -> str:
@@ -70,24 +84,28 @@ def _distance_channel(layer) -> str:
 
 
 def interpolate(layer, points, channel: str | None = None,
-                min_weight: float = 1e-6):
+                min_weight: float = 1e-6, max_psl: int | None = None):
     """Trilinear value at world points [Q,3]: (values [Q], valid [Q]);
-    valid needs all 8 corners observed."""
+    valid needs all 8 corners observed. ``max_psl``: the hash table's
+    probe bound as a host int (``core/hash.lookup``), for callers that
+    query a layer that does not change many times without a host read."""
     channel = channel or _distance_channel(layer)
+    if max_psl is None:
+        max_psl = _runtime.host_int(layer.table.max_psl)
     low, frac = _corner_setup(points, layer.voxel_size)
-    corners = _corners(low)
-    vals, found = vlayer.get_voxels(layer, channel, corners)
-    ok = _corner_validity(layer, corners, found, min_weight)
+    vals, ok = _values_and_validity(layer, _corners(low), channel,
+                                    min_weight, max_psl)
     return torch.sum(_trilinear_weights(frac) * vals, dim=-1), ok.all(-1)
 
 
 def nearest(layer, points, channel: str | None = None,
-            min_weight: float = 1e-6):
+            min_weight: float = 1e-6, max_psl: int | None = None):
     """Nearest-voxel value: (values [Q], valid [Q])."""
     channel = channel or _distance_channel(layer)
+    if max_psl is None:
+        max_psl = _runtime.host_int(layer.table.max_psl)
     gvi = grid.point_to_grid_index(points, 1.0 / layer.voxel_size)
-    vals, found = vlayer.get_voxels(layer, channel, gvi)
-    return vals, _corner_validity(layer, gvi, found, min_weight)
+    return _values_and_validity(layer, gvi, channel, min_weight, max_psl)
 
 
 def interpolate_with_gradient(layer, points, channel: str | None = None,
@@ -96,9 +114,9 @@ def interpolate_with_gradient(layer, points, channel: str | None = None,
     [Q,3], valid [Q])."""
     channel = channel or _distance_channel(layer)
     low, frac = _corner_setup(points, layer.voxel_size)
-    corners = _corners(low)
-    vals, found = vlayer.get_voxels(layer, channel, corners)
-    ok = _corner_validity(layer, corners, found, min_weight)
+    vals, ok = _values_and_validity(
+        layer, _corners(low), channel, min_weight,
+        _runtime.host_int(layer.table.max_psl))
     out = torch.sum(_trilinear_weights(frac) * vals, dim=-1)
     fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]
     gx, gy, gz = 1.0 - fx, 1.0 - fy, 1.0 - fz
@@ -120,18 +138,17 @@ def _axis_offset(ax: int, h: float, device):
 
 
 def gradient_central(layer, points, channel: str | None = None,
-                     min_weight: float = 1e-6):
+                     min_weight: float = 1e-6, max_psl: int | None = None):
     """Central differences of interpolated values at +-voxel_size per axis
-    (getGradient): (grads [Q,3], valid [Q])."""
+    (getGradient): (grads [Q,3], valid [Q]). The six stencil points go
+    through one ``interpolate`` call."""
     channel = channel or _distance_channel(layer)
     h = layer.voxel_size
-    grads, valid = [], None
-    for ax in range(3):
-        off = _axis_offset(ax, h, points.device)
-        up, vu = interpolate(layer, points + off, channel, min_weight)
-        dn, vd = interpolate(layer, points - off, channel, min_weight)
-        grads.append((up - dn) / (2.0 * h))
-        valid = (vu & vd) if valid is None else (valid & vu & vd)
+    stencil = torch.stack([points + s * _axis_offset(ax, h, points.device)
+                           for ax in range(3) for s in (1.0, -1.0)])
+    vals, ok = interpolate(layer, stencil, channel, min_weight, max_psl)
+    grads = [(vals[2 * ax] - vals[2 * ax + 1]) / (2.0 * h) for ax in range(3)]
+    valid = ok.all(0)
     return torch.stack(grads, dim=-1), valid
 
 
@@ -145,14 +162,16 @@ def adaptive_distance_and_gradient(layer, points, channel: str | None = None,
     (distances [Q], grads [Q,3], valid [Q])."""
     channel = channel or _distance_channel(layer)
     h = layer.voxel_size
-    nn, nn_ok = nearest(layer, points, channel, min_weight)
-    interp_d, interp_ok = interpolate(layer, points, channel, min_weight)
-    grad_i, grad_i_ok = gradient_central(layer, points, channel, min_weight)
+    psl = _runtime.host_int(layer.table.max_psl)
+    nn, nn_ok = nearest(layer, points, channel, min_weight, psl)
+    interp_d, interp_ok = interpolate(layer, points, channel, min_weight, psl)
+    grad_i, grad_i_ok = gradient_central(layer, points, channel, min_weight,
+                                         psl)
     g_fb, fb_ok = [], nn_ok
     for ax in range(3):
         off = _axis_offset(ax, h, points.device)
-        right, r_ok = nearest(layer, points + off, channel, min_weight)
-        left, l_ok = nearest(layer, points - off, channel, min_weight)
+        right, r_ok = nearest(layer, points + off, channel, min_weight, psl)
+        left, l_ok = nearest(layer, points - off, channel, min_weight, psl)
         g_fb.append(torch.where(
             l_ok & r_ok, (right - left) / (2.0 * h),
             torch.where(l_ok, (nn - left) / h,

@@ -31,6 +31,7 @@ from ..core import grid
 from ..core import layer as vlayer
 from ..core.config import TsdfIntegratorConfig
 from .compaction import compact_ids
+from .raycast import fma
 
 _INF = float("inf")
 
@@ -112,8 +113,12 @@ def build_pinhole_range_image(points_C, colors, resolution,
     z = points_C[..., 2]
     valid = z > 1e-3
     zs = torch.clamp(z, min=1e-6)
-    u = _f2i(torch.round(points_C[..., 0] / zs * fx + cx))
-    v = _f2i(torch.round(points_C[..., 1] / zs * fy + cy))
+    # x / z * fx + cx with one rounding, as the JAX CPU program contracts
+    # it: points on a pixel border (a cloud binned at a fraction of its
+    # own resolution) fall on the same side.
+    f32 = np.float32
+    u = _f2i(torch.round(fma(points_C[..., 0] / zs, f32(fx), f32(cx))))
+    v = _f2i(torch.round(fma(points_C[..., 1] / zs, f32(fy), f32(cy))))
     inb = valid & (u >= 0) & (u < w) & (v >= 0) & (v < h)
     rng, color = _bin(points_C, colors, v.to(torch.int64) * w + u, inb, h, w)
     return RangeImage(

@@ -41,7 +41,8 @@ def fma(a, b, c):
     exact in float64, so one float64 add and one rounding to float32 give
     the fused result (bar double rounding, ~2^-29 of cases) on any
     device."""
-    return (a.double() * b.double() + c.double()).to(torch.float32)
+    return (torch.as_tensor(a).double() * torch.as_tensor(b).double()
+            + torch.as_tensor(c).double()).to(torch.float32)
 
 
 def _norm(x):

@@ -15,10 +15,17 @@ voxblox_tpu/server/mapper.py).
 
 ``update_mesh`` keeps a device-resident mesh pool up to date (one
 bucket of dirty blocks per call, no host read); ``generate_mesh`` /
-``export_mesh_layer`` drain it and export a host ``MeshLayer``.
+``export_mesh_layer`` drain it and export a host ``MeshLayer`` (and a PLY
+file), ``publish_mesh_msg`` the incremental mesh message.
 
-Not ported yet (they raise): ICP, map IO, PLY export, the mesh wire
-message, clear spheres, intensity and the simulation server.
+``enable_icp`` refines each scan's pose against the map before it is
+integrated (two-dispatch path only, as in the JAX package); the ESDF
+server's ``clear_sphere_for_planning`` adds the robot-position prior
+after each scan. ``save_map`` / ``load_map`` take .vxblx files (the ESDF
+appended after the TSDF) or .npz checkpoints. Per-stage host timers
+(``utils/timing``, the JAX package's tags) feed ``stats()``.
+
+Not ported yet: intensity and the simulation server.
 """
 
 from __future__ import annotations
@@ -33,14 +40,18 @@ from .. import _runtime
 from ..core import layer as vlayer
 from ..core.config import (
     EsdfIntegratorConfig,
+    IcpConfig,
     MapConfig,
     MeshIntegratorConfig,
     TsdfIntegratorConfig,
 )
+from ..io import layer_io, mesh_msg, npz_io, ply
 from ..ops import esdf as esdf_ops
+from ..ops import icp as icp_ops
 from ..ops import mesh as mesh_ops
 from ..ops import projective as projective_ops
 from ..ops import tsdf as tsdf_ops
+from ..utils import planning, timing
 
 METHODS = ("projective", "simple", "merged", "fast")
 PROJECTIVE_KINDS = ("pinhole", "spherical", "spherical_organized")
@@ -61,7 +72,7 @@ class TsdfServer:
         mesh_config: MeshIntegratorConfig = MeshIntegratorConfig(),
         method: str = "fast",
         enable_icp: bool = False,
-        icp_config=None,
+        icp_config: IcpConfig = IcpConfig(),
         max_block_distance_from_body: float = 0.0,
         max_points: Optional[int] = None,
         projective_resolution=(320, 240),
@@ -82,8 +93,8 @@ class TsdfServer:
         if projective_kind not in PROJECTIVE_KINDS:
             raise ValueError(f"projective_kind must be one of "
                              f"{PROJECTIVE_KINDS}, not {projective_kind!r}")
-        if enable_icp:
-            raise NotImplementedError("ICP is not ported")
+        self.enable_icp = enable_icp
+        self.icp_config = icp_config
         self.map_config = map_config
         self.cfg = integrator_config
         self.mesh_config = mesh_config
@@ -114,6 +125,8 @@ class TsdfServer:
         self.mesh_layer = mesh_ops.MeshLayer(self.layer.block_size)
         self._mesh_more = None  # device flag: dirty rows beyond the bucket
         self.num_scans = 0
+        self.icp_corrected = (torch.eye(3, device=self.device),
+                              torch.zeros(3, device=self.device))
         self.overflow_check_interval = max(1, int(overflow_check_interval))
         self._overflow_acc = None  # device-side pool-overflow flag
         # Scans since the last check with their device budget-overflow
@@ -149,13 +162,20 @@ class TsdfServer:
             **self.projective_budgets)
 
     def insert_pointcloud(self, T_G_C, points_C, colors=None):
-        """Integrate one posed flat scan. Returns the pose used."""
+        """Integrate one posed flat scan. Returns the pose used (refined
+        by ICP against the map when ``enable_icp``)."""
         points_C = self._tensor(points_C)
         colors = (torch.zeros_like(points_C) if colors is None
                   else self._tensor(colors))
         points_C, colors = self._pad(points_C, colors)
         T_G_C = self._pose(T_G_C)
-        with record_function(f"integrate_{self.method}"):
+        if self.enable_icp and self.num_scans > 0:
+            with timing.timer("icp"):
+                res = icp_ops.run_icp(self.layer, points_C, T_G_C,
+                                      self.icp_config)
+                T_G_C = self.icp_corrected = (res.R, res.t)
+        with timing.timer(f"integrate/{self.method}", annotate=False), \
+                record_function(f"integrate_{self.method}"):
             if self.method == "projective":
                 self.layer, overflow, budget_ovf = self._integrate(
                     T_G_C, points_C, colors)
@@ -169,10 +189,11 @@ class TsdfServer:
         if (self.num_scans + 1) % self.overflow_check_interval == 0:
             self.check_overflow()
         if self.max_block_distance > 0.0:
-            self.layer = vlayer.remove_distant_blocks(
-                self.layer, T_G_C[1], self.max_block_distance)
-            self.mesh_layer.clear_distant(_runtime.to_host(T_G_C[1]),
-                                          self.max_block_distance)
+            with timing.timer("remove_distant_blocks"):
+                self.layer = vlayer.remove_distant_blocks(
+                    self.layer, T_G_C[1], self.max_block_distance)
+                self.mesh_layer.clear_distant(_runtime.to_host(T_G_C[1]),
+                                              self.max_block_distance)
         self.num_scans += 1
         return T_G_C
 
@@ -252,7 +273,8 @@ class TsdfServer:
         """Incremental mesh update: march up to ``update_bucket`` mesh-dirty
         rows into the device mesh pool (no host read; export with
         ``generate_mesh`` / ``export_mesh_layer``)."""
-        with record_function("mesh_update"):
+        with timing.timer("mesh/update", annotate=False), \
+                record_function("mesh_update"):
             self.layer, self.mesh_pool, more = mesh_ops.update_mesh_pool(
                 self.layer, self.mesh_pool, self.mesh_config,
                 bucket=self.mesh_config.update_bucket, only_updated=True)
@@ -277,25 +299,43 @@ class TsdfServer:
             if not _runtime.host_bool(more):
                 return
 
+    def publish_mesh_msg(self, drain: bool = True) -> bytes:
+        """The incremental mesh delta since the last publish as wire bytes
+        (``io/mesh_msg``; the updateMeshEvent -> mesh publisher path):
+        every row re-marched since then ships whole. The encoding reads
+        the card twice, the drain and rows over the pool's triangle cap
+        (marched densely) more."""
+        if drain:
+            self._drain_mesh_updates()
+        with timing.timer("mesh/publish"):
+            msg, self.layer = mesh_msg.encode_mesh_msg(
+                self.layer, self.mesh_pool,
+                use_color=self.mesh_config.use_color)
+            return mesh_msg.serialize_mesh_msg(msg)
+
     def export_mesh_layer(self) -> mesh_ops.MeshLayer:
         """Drain pending mesh updates and transfer the device mesh pool
         into the host MeshLayer cache."""
         self._drain_mesh_updates()
-        mesh_ops.pool_to_mesh_layer(self.layer, self.mesh_pool,
-                                    self.mesh_layer, self.mesh_config)
+        with timing.timer("mesh/export"):
+            mesh_ops.pool_to_mesh_layer(self.layer, self.mesh_pool,
+                                        self.mesh_layer, self.mesh_config)
         return self.mesh_layer
 
     def generate_mesh(self, path: Optional[str] = None):
         """Full re-mesh: mark every active block mesh-dirty, drain and
-        export. Returns the host MeshLayer."""
+        export; with ``path``, also write it as a PLY file. Returns the
+        host MeshLayer."""
+        with timing.timer("mesh/generate"):
+            rows = torch.arange(self.layer.max_blocks, dtype=torch.int32,
+                                device=self.device)
+            self.layer = vlayer.mark_dirty(self.layer, rows,
+                                           self.layer.active_mask(),
+                                           vlayer.DIRTY_MESH)
+            self.export_mesh_layer()
         if path:
-            raise NotImplementedError("PLY export is not ported yet")
-        rows = torch.arange(self.layer.max_blocks, dtype=torch.int32,
-                            device=self.device)
-        self.layer = vlayer.mark_dirty(self.layer, rows,
-                                       self.layer.active_mask(),
-                                       vlayer.DIRTY_MESH)
-        return self.export_mesh_layer()
+            ply.mesh_layer_to_ply(self.mesh_layer, path)
+        return self.mesh_layer
 
     def clear(self):
         """Drop the map and the mesh; budgets and configuration stay."""
@@ -313,12 +353,29 @@ class TsdfServer:
         self._pending_scans = []
         self._overflow_acc = None
 
-    # -- services not ported yet ------------------------------------------
+    # -- map files ---------------------------------------------------------
     def save_map(self, path: str):
-        raise NotImplementedError("map IO is not ported yet")
+        """The TSDF as a .npz checkpoint or a .vxblx file (deferred
+        overflow resolved first)."""
+        self.check_overflow()
+        if path.endswith(".npz"):
+            npz_io.save_npz(self.layer, path)
+        else:
+            layer_io.save_layer(self.layer, path)
 
     def load_map(self, path: str):
-        raise NotImplementedError("map IO is not ported yet")
+        if path.endswith(".npz"):
+            self.layer = npz_io.load_npz(path, self.device)
+        else:
+            self.layer = layer_io.load_layer(
+                path, "tsdf", max_blocks=self.map_config.max_blocks,
+                device=self.device)
+
+    def stats(self):
+        return {"num_scans": self.num_scans,
+                "num_blocks": _runtime.host_int(self.layer.num_blocks),
+                "memory_bytes": self.layer.memory_bytes(),
+                "timing": timing.as_dict()}
 
 
 class EsdfServer(TsdfServer):
@@ -338,8 +395,7 @@ class EsdfServer(TsdfServer):
         **kw,
     ):
         super().__init__(map_config, integrator_config, **kw)
-        if clear_sphere_for_planning:
-            raise NotImplementedError("clear spheres are not ported")
+        self.clear_sphere_for_planning = clear_sphere_for_planning
         if relax_impl not in ("kernel", "plain"):
             raise ValueError(f"relax_impl must be 'kernel' or 'plain', "
                              f"not {relax_impl!r}")
@@ -351,6 +407,15 @@ class EsdfServer(TsdfServer):
         self.esdf_layer = vlayer.make_layer(
             "esdf", map_config.voxel_size, vps=map_config.voxels_per_side,
             max_blocks=map_config.max_blocks, device=self.device)
+
+    def insert_pointcloud(self, T_G_C, points_C, colors=None):
+        T = super().insert_pointcloud(T_G_C, points_C, colors)
+        if self.clear_sphere_for_planning:
+            # newPoseCallback -> addNewRobotPosition (esdf_server.cc:222-231)
+            with timing.timer("esdf/clear_radius"):
+                self.esdf_layer, _ = planning.add_new_robot_position(
+                    self.esdf_layer, T[1], self.esdf_cfg)
+        return T
 
     def insert_pointcloud_and_update_esdf(self, T_G_C, points_C,
                                           colors=None):
@@ -370,7 +435,8 @@ class EsdfServer(TsdfServer):
         if not organized:
             points_C, colors = self._pad(points_C, colors)
         T_G_C = self._pose(T_G_C)
-        iters = self._fused_step(T_G_C, points_C, colors)
+        with timing.timer("fused_scan", annotate=False):
+            iters = self._fused_step(T_G_C, points_C, colors)
         self.num_scans += 1
         if self.num_scans % self.overflow_check_interval == 0:
             self.check_overflow()
@@ -412,15 +478,19 @@ class EsdfServer(TsdfServer):
         """Incremental ESDF update; deferred (flags on the device) when
         ``overflow_check_interval > 1``. Returns the outer iterations."""
         if self.overflow_check_interval > 1:
-            (self.esdf_layer, self.layer, overflow, region_ovf,
-             iters) = esdf_ops.update_from_tsdf_incremental_deferred(
-                self.esdf_layer, self.layer, self.esdf_cfg, self.relax_impl)
+            with timing.timer("esdf/update_esdf"):
+                (self.esdf_layer, self.layer, overflow, region_ovf,
+                 iters) = esdf_ops.update_from_tsdf_incremental_deferred(
+                    self.esdf_layer, self.layer, self.esdf_cfg,
+                    self.relax_impl)
             self._esdf_pool_ovf = _or(self._esdf_pool_ovf, overflow)
             self._esdf_region_ovf = _or(self._esdf_region_ovf, region_ovf)
             return iters
-        self.esdf_layer, self.layer, overflow, iters = (
-            esdf_ops.update_from_tsdf_incremental(
-                self.esdf_layer, self.layer, self.esdf_cfg, self.relax_impl))
+        with timing.timer("esdf/update_esdf"):
+            self.esdf_layer, self.layer, overflow, iters = (
+                esdf_ops.update_from_tsdf_incremental(
+                    self.esdf_layer, self.layer, self.esdf_cfg,
+                    self.relax_impl))
         if _runtime.host_bool(overflow):
             raise MemoryError("ESDF pool overflow")
         return iters
@@ -450,8 +520,37 @@ class EsdfServer(TsdfServer):
             self.update_esdf_batch()
 
     def update_esdf_batch(self):
-        self.esdf_layer, overflow, iters = esdf_ops.update_from_tsdf_batch(
-            self.esdf_layer, self.layer, self.esdf_cfg, self.relax_impl)
+        with timing.timer("esdf/update_esdf_batch"):
+            self.esdf_layer, overflow, iters = esdf_ops.update_from_tsdf_batch(
+                self.esdf_layer, self.layer, self.esdf_cfg, self.relax_impl)
         if _runtime.host_bool(overflow):
             raise MemoryError("ESDF pool overflow")
         return iters
+
+    def save_map(self, path: str):
+        """TSDF and ESDF in one .vxblx file, the ESDF appended
+        (esdf_server.cc:172-190), or two .npz checkpoints (``path`` and
+        ``path + ".esdf.npz"``)."""
+        self.check_overflow()
+        if path.endswith(".npz"):
+            npz_io.save_npz(self.layer, path)
+            npz_io.save_npz(self.esdf_layer, path + ".esdf.npz")
+        else:
+            layer_io.save_layer(self.layer, path)
+            layer_io.save_layer(self.esdf_layer, path, append=True)
+
+    def load_map(self, path: str):
+        """Load the TSDF, and the ESDF where the file (or the .esdf.npz
+        beside a checkpoint) has one; otherwise regenerate the ESDF from
+        the TSDF (the tsdf_to_esdf tool)."""
+        super().load_map(path)
+        try:
+            if path.endswith(".npz"):
+                self.esdf_layer = npz_io.load_npz(path + ".esdf.npz",
+                                                  self.device)
+            else:
+                self.esdf_layer = layer_io.load_layer(
+                    path, "esdf", max_blocks=self.map_config.max_blocks,
+                    device=self.device)
+        except (ValueError, FileNotFoundError):
+            self.update_esdf_batch()
