@@ -7,7 +7,9 @@ with the unit and the strided schedule (bench.py's ESDF section), the
 stress_bench.py), the batched TSDF throughput path (bench.py section 1),
 the velodyne street map (bench.py's velodyne section), the three
 ray-casting integrators, the full-Euclidean ESDF, the map queries, map
-files, mesh messages, ICP and the command line's bag replay.
+files, mesh messages, ICP, the command line's bag replay, the renderer
+(bench.py's render section), `cli sim-bench` with occupancy, intensity
+and layer transforms.
 
     python3 chip_smoke.py             # the check (one card, a few minutes)
     python3 chip_smoke.py --profile   # + torch.profiler windows
@@ -76,6 +78,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
              --esdf` into a map and a mesh; the map against the analytic
              scene; then tests/data/cow_fixture.bag replayed on the card
              and on the CPU (same blocks, at most 0.2% of voxels off)
+ 18 render   (after 11) bench.py's render section on the tsdf-batch map:
+             65,536 rays from (0, -4, 2), 8 m, the packed march; forward
+             and loss + gradient rays/s (median of 3 groups of 4 calls),
+             launches, syncs, march steps and survivors per call; against
+             a CPU copy (depth, hit, gradient), the general path, the
+             analytic cylinder, central differences, the colour path; a
+             640x480 depth image of the 2 cm stress map from orbit pose 0
+ 19 simbench (last) `cli sim-bench --device cuda` in process at its
+             defaults, plain and --occupancy, against tests/test_server.py's
+             bounds; 3 viewpoints against a CPU copy (TSDF and occupancy,
+             at most 0.2% of voxels off); the occupancy ESDF through K1
+             against the plain relaxation (bit-equal), K1 at its shape
+ 20 intensity (after 14) IntensityServer over the phase-3 TSDF: a 640x480
+             image at subsample 4, ms and syncs a call, against a CPU copy
+ 21 transform transform_layer of the phase-3 TSDF (10 deg yaw, 0.1 m) and
+             back, merge_layers, evaluate_layer_rmse_at_poses; against a
+             CPU copy
 Prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -1069,7 +1088,7 @@ def tsdf_batch_phase(scans, intr, dev, profile=False):
         f"{res['blocks']}, overflow={overflow}")
     log("tsdf batch: " + json.dumps(res))
     assert not overflow, "the batch overflowed its budgets"
-    return res
+    return res, layer
 
 
 def velodyne_phase(dev, profile=False):
@@ -1753,6 +1772,547 @@ def replay_phase(scans, dev, tmp):
     assert observed > 2000 and off <= 2e-3 * observed, res
     return res
 
+# ---------------------------------------------------------------------------
+# Phases 18-21: render, sim-bench, intensity, layer transforms
+# ---------------------------------------------------------------------------
+
+RENDER_RAYS = 65536
+RENDER_MAX_DIST = 8.0
+SIM_VIEWPOINTS = 20  # cli sim-bench's default
+SIM_EXTRA: list = []  # further sim-bench arguments (none: its defaults)
+SIM_CPU_VIEWPOINTS = 3
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _median_rays_per_s(call, n_rays, dev):
+    """bench.py's timing: 3 groups of 4 calls, the origin varied per call,
+    one sync a group; the median group."""
+    times = []
+    for g in range(3):
+        _sync(dev)
+        t0 = time.perf_counter()
+        for i in range(4):
+            call(np.float32(1e-4 * (4 * g + i + 1)))
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+    return 4 * n_rays / statistics.median(times), times
+
+
+def _call_profile(dev, call, name):
+    """Kernel launches, stream syncs and device busy time of one call."""
+    if dev.type != "cuda":
+        return {}
+    prof = profile_window(None, lambda i: call(np.float32(0.0)),
+                          f"chiprun_out/{name}_trace.json", n=1, stack=False,
+                          keep=False)
+    return {k: prof[k] for k in ("kernel_launches_per_scan",
+                                 "stream_syncs_per_scan",
+                                 "device_busy_ms_per_scan",
+                                 "traced_span_ms_per_scan")}
+
+
+def _render_rays(dev):
+    """bench.py _bench_render's rays (:523-529): 65,536 in the xy plane
+    from (0, -4, 2), +-0.4 rad about +y."""
+    ang = np.linspace(-0.4, 0.4, RENDER_RAYS).astype(np.float32)
+    dirs = torch.as_tensor(np.stack([np.sin(ang), np.cos(ang),
+                                     np.zeros_like(ang)], -1), device=dev)
+    origins = torch.tensor([0.0, -4.0, 2.0], device=dev).expand(dirs.shape)
+    return origins, dirs, ang
+
+
+def _with_channels(layer, **channels):
+    import dataclasses
+    return dataclasses.replace(layer,
+                               channels={**layer.channels, **channels})
+
+
+def _share_close(a, b, atol):
+    return float(((a - b).abs() <= atol).float().mean())
+
+
+def render_phase(layer, stress_layer, scans, intr, dev):
+    """bench.py's render section (:519-587) on the tsdf-batch map: forward
+    and loss + gradient rays/s, launches and syncs per call; checks
+    against a CPU copy, the general path, the analytic scene, finite
+    differences and the colour path; then a 640x480 depth image of the
+    2 cm stress map."""
+    from voxblox_tpu_torch.ops import render
+
+    origins, dirs, ang = _render_rays(dev)
+    dim = render.fit_dense_grid_dim(layer)
+    res = dict(rays=RENDER_RAYS, dense_grid_dim=dim,
+               blocks=_runtime.host_int(layer.num_blocks))
+
+    def forward(layer_, o_shift=np.float32(0.0), **kw):
+        return render.render_depth(layer_, origins + o_shift, dirs,
+                                   RENDER_MAX_DIST, dense_grid_dim=dim, **kw)
+
+    syncs0 = _runtime.SYNCS
+    depth, hit = forward(layer)
+    _sync(dev)
+    res["forward_march"] = dict(render.LAST_MARCH)
+    res["forward_host_syncs_per_call"] = _runtime.SYNCS - syncs0
+    assert res["forward_march"]["packed"], res["forward_march"]
+    res["forward_rays_per_s"], res["forward_group_s"] = _median_rays_per_s(
+        lambda s: forward(layer, s), RENDER_RAYS, dev)
+    res["forward_profile"] = _call_profile(dev, lambda s: forward(layer, s),
+                                           "render_forward")
+    target = depth.detach()
+    base = layer.channels["tsdf"]
+
+    def loss_grad(o_shift=np.float32(0.0), tgt=target, dtype=torch.float32):
+        tsdf = base.detach().clone().requires_grad_(True)
+        dep, h = forward(_with_channels(layer, tsdf=tsdf), o_shift)
+        err = torch.where(h, dep - tgt, 0.0).to(dtype)
+        loss = (err * err).sum()
+        loss.backward()
+        return loss.detach(), tsdf.grad
+
+    syncs0 = _runtime.SYNCS
+    loss_grad()
+    _sync(dev)
+    res["backward_host_syncs_per_call"] = _runtime.SYNCS - syncs0
+    res["backward_rays_per_s"], res["backward_group_s"] = _median_rays_per_s(
+        loss_grad, RENDER_RAYS, dev)
+    res["backward_profile"] = _call_profile(dev, loss_grad, "render_backward")
+    log(f"render: {res['forward_rays_per_s'] / 1e6:.2f} M rays/s forward, "
+        f"{res['backward_rays_per_s'] / 1e6:.2f} M rays/s loss + grad (grid "
+        f"{dim}, march {res['forward_march']})")
+
+    # The analytic scene: the cylinder (r 2 m about z) from (0, -4, 2).
+    c = np.cos(ang.astype(np.float64))
+    t_true = torch.as_tensor(4 * c - np.sqrt(16 * c * c - 12), device=dev)
+    hit_share = float(hit.float().mean())
+    err = (depth.double() - t_true).abs()[hit]
+    res["analytic"] = dict(hit_share=hit_share,
+                           within_0_04_share=float((err < 0.04).double()
+                                                   .mean()),
+                           max_err=float(err.max()))
+    # tests/test_render.py:108 holds 0.04 m on a GT sphere; a map built
+    # from scans: 95% of rays within it, all within 4 voxels.
+    assert hit_share > 0.99, res["analytic"]
+    assert res["analytic"]["within_0_04_share"] > 0.95, res["analytic"]
+    assert res["analytic"]["max_err"] < 4 * layer.voxel_size, res["analytic"]
+
+    # The general (two-gather) path at full width: against the packed one
+    # (the same hits; on a map built from scans the two stop points differ
+    # by more than on tests/test_render.py:293's GT sphere, in the JAX
+    # package too), and both paths against the port on a CPU copy of the
+    # layer; then the gradient against the CPU copy's (the card's sums run
+    # in atomics order).
+    cpu = torch.device("cpu")
+    layer_c = vlayer.layer_from_numpy(vlayer.layer_to_numpy(layer), cpu)
+    d_g, h_g = render.render_depth(layer, origins, dirs, RENDER_MAX_DIST,
+                                   dense_grid_dim=64)
+    g_march = dict(render.LAST_MARCH)
+    assert not g_march["packed"]
+    diff = (d_g - depth).abs()
+    res["general_vs_packed"] = dict(
+        same_hit_share=float((h_g == hit).float().mean()),
+        within_3mm_share=float((diff < 3e-3).float().mean()),
+        max_abs=float(diff.max()), march=g_march)
+    assert res["general_vs_packed"]["same_hit_share"] == 1.0, res[
+        "general_vs_packed"]
+    share = {}
+    for name, (d_k, h_k, gdim) in (("packed", (depth, hit, dim)),
+                                   ("general", (d_g, h_g, 64))):
+        d_c, h_c = render.render_depth(layer_c, origins.cpu(), dirs.cpu(),
+                                       RENDER_MAX_DIST, dense_grid_dim=gdim)
+        ok = (h_c == h_k.cpu()) & ((d_c - d_k.cpu()).abs() <= 1e-4)
+        share[name] = float(ok.float().mean())
+    # A target 1 cm short of the surface gives every hit a gradient.
+    tgt = target - 0.01
+    l_d, g_d = loss_grad(tgt=tgt, dtype=torch.float64)
+    tsdf_c = layer_c.channels["tsdf"].clone().requires_grad_(True)
+    dep_c, hh_c = render.render_depth(_with_channels(layer_c, tsdf=tsdf_c),
+                                      origins.cpu(), dirs.cpu(),
+                                      RENDER_MAX_DIST, dense_grid_dim=dim)
+    e_c = torch.where(hh_c, dep_c - tgt.cpu(), 0.0).double()
+    (e_c * e_c).sum().backward()
+    g_c = tsdf_c.grad
+    g_dc = g_d.cpu()
+    nz = (g_c.abs() > 1e-6) | (g_dc.abs() > 1e-6)
+    g_ok = ((g_dc - g_c).abs() <= 1e-4 + 1e-3 * g_c.abs())[nz]
+    res["card_vs_cpu"] = dict(
+        depth_hit_share_within_1e4=share,
+        grad_voxels=int(nz.sum()),
+        grad_share_within_1e4_1e3=float(g_ok.float().mean()),
+        grad_max_abs_diff=float((g_dc - g_c).abs().max()),
+        loss_card=float(l_d), loss_cpu=float((e_c * e_c).sum().detach()))
+    log("render card vs cpu: " + json.dumps(res["card_vs_cpu"]))
+    assert min(share.values()) >= 0.99, share
+    assert res["card_vs_cpu"]["grad_share_within_1e4_1e3"] >= 0.99
+    assert int(nz.sum()) > 100, int(nz.sum())
+
+    # Central differences on the card (tests/test_render.py:326-350: the
+    # sum of hit depths, the packed path, bar 0.1) over every 1024th ray,
+    # at the 6 voxels of the largest gradients.
+    o_fd, d_fd = origins[::1024], dirs[::1024]
+
+    def depth_sum(tsdf):
+        dep, h = render.render_depth(_with_channels(layer, tsdf=tsdf), o_fd,
+                                     d_fd, RENDER_MAX_DIST,
+                                     dense_grid_dim=dim)
+        return torch.where(h, dep, 0.0).double().sum()
+
+    tsdf = base.detach().clone().requires_grad_(True)
+    depth_sum(tsdf).backward()
+    flat = tsdf.grad.reshape(-1)
+    fd_rows = []
+    eps = 1e-3
+    with torch.no_grad():
+        for i in torch.topk(flat.abs(), 6).indices.tolist():
+            vals = []
+            for step in (eps, -eps):
+                t2 = base.clone()
+                t2.view(-1)[i] += step
+                vals.append(float(depth_sum(t2)))
+            fd = (vals[0] - vals[1]) / (2 * eps)
+            fd_rows.append(dict(voxel=i, fd=fd, grad=float(flat[i])))
+    res["finite_differences"] = fd_rows
+    bad = [r for r in fd_rows
+           if abs(r["fd"] - r["grad"]) >= 0.1 * max(1.0, abs(r["fd"]))]
+    # A perturbed voxel can also move a gradient-stopped pull (the
+    # implicit gradient leaves that out by design): 4 of the 6 must agree.
+    assert len(bad) <= 2 and abs(fd_rows[0]["grad"]) > 0.1, fd_rows
+
+    # Colour, forward and backward: the cylinder is green.
+    color_ch = layer.channels["color"].detach().clone().requires_grad_(True)
+    tsdf = base.detach().clone().requires_grad_(True)
+    dep, rgb, h = forward(_with_channels(layer, tsdf=tsdf, color=color_ch),
+                          with_color=True)
+    (rgb[:, 1].sum() + dep.sum()).backward()
+    green = float(rgb[h][:, 1].mean())
+    res["color"] = dict(mean_green_on_hits=green,
+                        color_grad_voxels=int((color_ch.grad != 0).sum()),
+                        tsdf_grad_finite=bool(torch.isfinite(
+                            tsdf.grad).all()))
+    assert green > 200 and res["color"]["color_grad_voxels"] > 100, \
+        res["color"]
+    assert res["color"]["tsdf_grad_finite"]
+
+    # render_depth_image of the 2 cm stress map at 640x480 from pose 0.
+    R, t = scans[0][0], scans[0][1]
+    img = {}
+    for label, kw in (("auto", {}), ("general", dict(dense_grid_dim=64))):
+        _sync(dev)
+        t0 = time.perf_counter()
+        d_img, h_img = render.render_depth_image(
+            stress_layer, (R, t), intr, RES, RENDER_MAX_DIST, **kw)
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        rng = scans[0][2].norm(dim=-1)
+        both = h_img & (rng > 0)
+        err = (d_img - rng)[both].abs()
+        img[label] = dict(ms=ms, march=dict(render.LAST_MARCH),
+                          hit_share=float(h_img.float().mean()),
+                          within_2cm_of_scan=float((err < 0.02).float()
+                                                   .mean()))
+        assert img[label]["within_2cm_of_scan"] > 0.95, img[label]
+        if not img[label]["march"]["packed"]:
+            break  # the auto-fitted grid already took the general path
+    img["dense_grid_dim"] = render.fit_dense_grid_dim(stress_layer)
+    res["stress_image_640x480"] = img
+    log("render: " + json.dumps(res))
+    return res
+
+
+def _parse_sim_bench(text):
+    """The rows ``cli sim-bench`` prints."""
+    import ast
+    import re
+
+    rows = {}
+    for line in text.splitlines():
+        key, _, rest = line.partition(": ")
+        if key in ("TSDF", "ESDF", "ESDF-OCC"):
+            m = re.search(r"rmse=([0-9.e+-]+) max=([0-9.e+-]+) "
+                          r"evaluated=(\d+)", rest)
+            rows[key] = dict(rmse=float(m.group(1)),
+                             max_error=float(m.group(2)),
+                             evaluated=int(m.group(3)))
+        elif key == "OCC":
+            rows[key] = ast.literal_eval(rest)
+    return rows
+
+
+def sim_bench_phase(dev):
+    """``cli sim-bench --device cuda`` in process at the command's
+    defaults, plain and with --occupancy (tests/test_server.py's bounds);
+    3 viewpoints against a CPU copy; the occupancy ESDF through K1
+    against the plain relaxation, and K1 timed at that path's shape."""
+    import contextlib
+    import io
+
+    from voxblox_tpu_torch.ops import occupancy as occupancy_ops
+    from voxblox_tpu_torch.server import cli, mapper
+    from voxblox_tpu_torch.utils import timing
+
+    kept = {}
+
+    class _Keep(mapper.SimulationServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            kept["srv"] = self
+
+    res = {}
+    orig = mapper.SimulationServer
+    mapper.SimulationServer = _Keep
+    try:
+        for name, extra in (("plain", []), ("occupancy", ["--occupancy"])):
+            timing.reset()
+            buf = io.StringIO()
+            syncs0 = _runtime.SYNCS
+            _sync(dev)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                assert cli.main(["sim-bench", "--device", dev.type,
+                                 "--viewpoints", str(SIM_VIEWPOINTS)]
+                                + SIM_EXTRA + extra) == 0
+            _sync(dev)
+            wall = time.perf_counter() - t0
+            rows = _parse_sim_bench(buf.getvalue())
+            stages = {k: v["total_s"] / SIM_VIEWPOINTS
+                      for k, v in timing.as_dict().items()}
+            res[name] = dict(s_per_viewpoint=wall / SIM_VIEWPOINTS,
+                             wall_s=wall, rows=rows,
+                             stage_s_per_viewpoint=stages,
+                             host_syncs_per_viewpoint=(
+                                 _runtime.SYNCS - syncs0) / SIM_VIEWPOINTS,
+                             blocks=_runtime.host_int(
+                                 kept["srv"].tsdf_layer.num_blocks))
+            log(f"sim-bench {name}: " + json.dumps(res[name]))
+            voxel = kept["srv"].voxel_size
+            assert rows["TSDF"]["rmse"] < 2 * voxel, rows
+            assert rows["ESDF"]["rmse"] < 2 * voxel, rows
+            assert rows["TSDF"]["evaluated"] > MIN_OBSERVED, rows
+            if extra:
+                assert rows["OCC"]["misclassified_frac"] < 0.15, rows
+                assert rows["ESDF-OCC"]["rmse"] < 4 * voxel, rows
+    finally:
+        mapper.SimulationServer = orig
+    srv = kept["srv"]
+
+    # The occupancy ESDF through K1 against the plain relaxation.
+    import dataclasses
+    cfg = dataclasses.replace(srv.esdf_cfg, use_pallas_kernel=True)
+    out = {}
+    for impl in ("kernel", "plain"):
+        esdf = vlayer.make_layer("esdf", srv.voxel_size, vps=16,
+                                 max_blocks=srv.tsdf_layer.max_blocks,
+                                 device=dev)
+        reset_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        esdf, ovf, iters = occupancy_ops.esdf_from_occupancy_batch(
+            esdf, srv.occ_layer, cfg, relax_impl=impl)
+        _sync(dev)
+        out[impl] = (esdf, time.perf_counter() - t0, int(iters),
+                     esdf_relax.LAUNCHES)
+        assert not _runtime.host_bool(ovf)
+    (ek, k_s, k_it, k_launch), (ep, p_s, p_it, p_launch) = (
+        out["kernel"], out["plain"])
+    # The kernel launches on the card only (on the CPU its plain version
+    # runs, uncounted).
+    assert (k_launch > 0) == (dev.type == "cuda") and p_launch == 0, (
+        k_launch, p_launch)
+    assert torch.equal(ek.channels["esdf_flags"], ep.channels["esdf_flags"])
+    obs = (ek.channels["esdf_flags"] & 1) != 0
+    err = float((ek.channels["esdf"] - ep.channels["esdf"])[obs].abs().max())
+    assert err == 0.0 and k_it == p_it, (err, k_it, p_it)
+    res["occupancy_esdf_kernel"] = dict(
+        launches=k_launch, outer_iters=k_it, kernel_s=k_s, plain_s=p_s,
+        max_abs_err=err, observed_voxels=int(obs.sum()),
+        n_blocks=srv.tsdf_layer.max_blocks)
+    log("occupancy ESDF, kernel vs plain: "
+        + json.dumps(res["occupancy_esdf_kernel"]))
+
+    # The first viewpoints on the card and on a CPU copy: the TSDF and
+    # occupancy layers. Both integrate the card's rendered scans (each
+    # device's own sim differs by an ulp here and there, which on the
+    # ground plane, z = 0 on a voxel border, moves merged bundles between
+    # voxels); the ESDF is the card's plain sweep, checked in phase 13's
+    # manner by the kernel comparison above.
+    from voxblox_tpu_torch.sim import world as sim_world
+
+    render_scan = sim_world.pointcloud_from_transform
+    scans_seen = []
+
+    def record(*a, **kw):
+        out = render_scan(*a, **kw)
+        scans_seen.append(out)
+        return out
+
+    def replay(*a, **kw):
+        return tuple(x.cpu() for x in scans_seen.pop(0))
+
+    layers = {}
+    try:
+        for device, shim in ((dev, record), (torch.device("cpu"), replay)):
+            sim_world.pointcloud_from_transform = shim
+            s = mapper.SimulationServer(
+                srv.world, voxel_size=srv.voxel_size, method=srv.method,
+                camera_res=srv.camera_res,
+                max_blocks=srv.tsdf_layer.max_blocks, incremental_esdf=False,
+                generate_occupancy=True, device=device)
+            poses = s.generate_poses(SIM_CPU_VIEWPOINTS, seed=0)
+            for pose in poses:
+                s.integrate_viewpoint(pose)
+            layers[device.type] = (
+                vlayer.layer_to_numpy(s.tsdf_layer),
+                vlayer.layer_to_numpy(s.occ_layer),
+                [(_runtime.to_host(R), _runtime.to_host(t))
+                 for R, t in poses])
+    finally:
+        sim_world.pointcloud_from_transform = render_scan
+    a, b = layers[dev.type], layers["cpu"]
+    for (Ra, ta), (Rb, tb) in zip(a[2], b[2]):
+        assert np.array_equal(Ra, Rb) and np.array_equal(ta, tb)
+    cmp = {}
+    for i, (name, chans) in enumerate((("tsdf", ("tsdf", "weight")),
+                                       ("occupancy", ("log_odds",)))):
+        x, y = a[i], b[i]
+        for k in ("num_blocks", "block_ijk", "block_flags"):
+            assert np.array_equal(x[k], y[k]), (name, k)
+        off = np.zeros(x[f"channel/{chans[0]}"].shape, bool)
+        for c in chans:  # phase 13's bar: 1e-5, relative for weights
+            ref = y[f"channel/{c}"]
+            tol = 1e-5 + (1e-5 * np.abs(ref) if c == "weight" else 0.0)
+            off |= np.abs(x[f"channel/{c}"] - ref) > tol
+        obs_key = "channel/weight" if name == "tsdf" else "channel/occ_observed"
+        observed = int((y[obs_key] > 0).sum())
+        cmp[name] = dict(observed_voxels=observed,
+                         voxels_off_by_more_than_1e5=int(off.sum()))
+        assert observed > MIN_OBSERVED // 10 and off.sum() <= 2e-3 * observed, \
+            (name, cmp[name])
+    res["card_vs_cpu_3_viewpoints"] = cmp
+    log("sim-bench card vs cpu: " + json.dumps(cmp))
+    return res
+
+
+def intensity_phase(tsdf_layer, scans, intr, dev):
+    """IntensityServer over the phase-3 TSDF: a synthetic 640x480 image
+    from orbit pose 0 at subsample 4 and 30 m; ms and host syncs a call;
+    the first call against a CPU copy."""
+    from voxblox_tpu_torch.server.mapper import IntensityServer
+
+    w, h = RES
+    vv, uu = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    image = (30.0 + 8.0 * np.sin(uu / 37.0) * np.cos(vv / 23.0)).astype(
+        np.float32)
+    pose = (scans[0][0], scans[0][1])
+    mc = MapConfig(voxel_size=VOXEL, max_blocks=MAX_BLOCKS)
+
+    def server(device, layer):
+        s = IntensityServer(map_config=mc, device=device)
+        s.layer = layer
+        return s
+
+    srv = server(dev, tsdf_layer)
+    syncs0 = _runtime.SYNCS
+    hits = srv.insert_intensity_image(pose, image, intr, subsample=4)
+    first = vlayer.layer_to_numpy(srv.intensity_layer)
+    syncs = _runtime.SYNCS - syncs0
+    cpu = torch.device("cpu")
+    ref = server(cpu, vlayer.layer_from_numpy(vlayer.layer_to_numpy(
+        tsdf_layer), cpu))
+    ref_hits = ref.insert_intensity_image(
+        tuple(x.cpu() for x in pose), image, intr, subsample=4)
+    got, exp = first, vlayer.layer_to_numpy(ref.intensity_layer)
+    for k in ("num_blocks", "block_ijk", "block_flags"):
+        assert np.array_equal(got[k], exp[k]), k
+    gi, ei = got["channel/intensity"], exp["channel/intensity"]
+    gw, ew = got["channel/intensity_weight"], exp["channel/intensity_weight"]
+    off = (np.abs(gi - ei) > 1e-4) | (gw != ew)
+    observed = int((ew > 0).sum())
+    times = []
+    for i in range(4):
+        _sync(dev)
+        t0 = time.perf_counter()
+        srv.insert_intensity_image(pose, image, intr, subsample=4)
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    res = dict(rays=len(range(0, w, 4)) * len(range(0, h, 4)), hits=hits,
+               cpu_hits=ref_hits, host_syncs_per_call=syncs,
+               ms_per_call=statistics.median(times), times_ms=times,
+               observed_voxels=observed, voxels_off_cpu=int(off.sum()))
+    log("intensity: " + json.dumps(res))
+    assert hits == ref_hits and hits > res["rays"] // 2, res
+    assert observed > 1000 and off.sum() <= 2e-3 * observed, res
+    return res
+
+
+def _yaw_pose(deg, shift, dev):
+    a = np.deg2rad(deg)
+    R = np.array([[np.cos(a), -np.sin(a), 0.0], [np.sin(a), np.cos(a), 0.0],
+                  [0.0, 0.0, 1.0]], np.float32)
+    return (torch.as_tensor(R, device=dev),
+            torch.as_tensor(np.asarray(shift, np.float32), device=dev))
+
+
+def transform_phase(tsdf_layer, dev):
+    """transform_layer of the phase-3 TSDF by a 10 degree yaw and a 0.1 m
+    shift, then back; merge_layers and evaluate_layer_rmse_at_poses; ms of
+    each; the forward transform against a CPU copy."""
+    from voxblox_tpu_torch.ops import transform
+    from voxblox_tpu_torch.utils import evaluation
+
+    T = _yaw_pose(10.0, (0.1, 0.0, 0.0), dev)
+    R_inv = T[0].T
+    T_inv = (R_inv, -(R_inv @ T[1]))
+    ms = {}
+
+    def timed(name, fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    moved, ovf = timed("transform", lambda: transform.transform_layer(
+        tsdf_layer, T))
+    back, ovf2 = timed("transform_back", lambda: transform.transform_layer(
+        moved, T_inv))
+    assert not any(_runtime.host_bools([ovf, ovf2]))
+    merged, _ = timed("merge", lambda: transform.merge_layers(
+        vlayer.clone_layer(tsdf_layer), back))
+    details = timed("rmse_at_poses", lambda: (
+        evaluation.evaluate_layer_rmse_at_poses(
+            tsdf_layer, moved, [T_inv, _yaw_pose(0.0, (0, 0, 0), dev)])))
+    round_trip = evaluation.evaluate_layers_rmse(tsdf_layer, back)
+    res = dict(ms=ms, blocks_moved=_runtime.host_int(moved.num_blocks),
+               blocks_merged=_runtime.host_int(merged.num_blocks),
+               round_trip_rmse=round_trip.rmse,
+               round_trip_evaluated=round_trip.num_evaluated_voxels,
+               rmse_at_inverse=details[0].rmse,
+               rmse_at_identity=details[1].rmse)
+    assert res["round_trip_evaluated"] > MIN_OBSERVED, res
+    assert res["round_trip_rmse"] < VOXEL, res
+    assert res["rmse_at_inverse"] < res["rmse_at_identity"], res
+    cpu = torch.device("cpu")
+    moved_c, _ = transform.transform_layer(
+        vlayer.layer_from_numpy(vlayer.layer_to_numpy(tsdf_layer), cpu),
+        tuple(x.cpu() for x in T))
+    a, b = vlayer.layer_to_numpy(moved), vlayer.layer_to_numpy(moved_c)
+    for k in ("num_blocks", "block_ijk", "block_flags"):
+        assert np.array_equal(a[k], b[k]), k
+    res["card_vs_cpu_max_abs"] = {
+        c: float(np.abs(a[f"channel/{c}"] - b[f"channel/{c}"]).max())
+        for c in ("tsdf", "weight", "color")}
+    log("transform: " + json.dumps(res))
+    assert res["card_vs_cpu_max_abs"]["tsdf"] <= 1e-5, res
+    assert res["card_vs_cpu_max_abs"]["weight"] <= 1e-5, res
+    assert res["card_vs_cpu_max_abs"]["color"] <= 1e-3, res
+    return res
+
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
@@ -1886,6 +2446,11 @@ def main():
         # 14. Map files of the phase-3 maps, and the command line on them.
         out["io"] = {"online": io_phase(srv, dev, tmp, "online", True)}
         done("io online")
+        # 20-21. Intensity and layer transforms on the phase-3 TSDF.
+        out["intensity"] = intensity_phase(srv.layer, scans, intr, dev)
+        done("intensity")
+        out["transform"] = transform_phase(srv.layer, dev)
+        done("transform")
         del srv
         torch.cuda.empty_cache()
 
@@ -1901,12 +2466,20 @@ def main():
         done("mesh messages")
         out["io"]["stress"] = io_phase(stress_srv, dev, tmp, "stress", False)
         done("io stress")
+        stress_layer = stress_srv.layer
         del stress_srv
         torch.cuda.empty_cache()
 
         # 11-13. Batched TSDF, the velodyne street map, ray casting.
-        out["tsdf_batch"] = tsdf_batch_phase(scans, intr, dev, args.profile)
+        out["tsdf_batch"], batch_layer = tsdf_batch_phase(scans, intr, dev,
+                                                          args.profile)
         done("tsdf batch")
+        # 18. The renderer on the tsdf-batch map, and a depth image of the
+        # stress map.
+        out["render"] = render_phase(batch_layer, stress_layer, scans, intr,
+                                     dev)
+        done("render")
+        del batch_layer, stress_layer
         torch.cuda.empty_cache()
         out["velodyne"] = velodyne_phase(dev, args.profile)
         done("velodyne")
@@ -1921,6 +2494,16 @@ def main():
         torch.cuda.empty_cache()
         out["replay"] = replay_phase(scans, dev, tmp)
         done("replay")
+        torch.cuda.empty_cache()
+
+        # 19. cli sim-bench, plain and with occupancy; the occupancy ESDF
+        # through K1, and K1 at that path's shape.
+        out["sim_bench"] = sim_bench_phase(dev)
+        done("sim-bench")
+        occ_k1 = out["sim_bench"]["occupancy_esdf_kernel"]
+        k1_other.append(k1_phase(occ_k1["n_blocks"], dev, 0.1, 2.0,
+                                 "occupancy batch"))
+        done("kernel K1 at the occupancy shape")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1942,7 +2525,8 @@ def main():
              launches_by_path=dict(
                  online_loop=launches,
                  batch_unit=out["batch"]["unit"]["launches"],
-                 stress_loop=out["stress"]["relax_launches"]),
+                 stress_loop=out["stress"]["relax_launches"],
+                 occupancy_batch=occ_k1["launches"]),
              other_shapes=[{k: o[k] for k in shape_keys}
                            for o in k1_other]),
         dict(name="esdf_relax_k2", route="cuda", source=src,

@@ -215,8 +215,14 @@ def test_cli_map_commands_on_cpu(tmp_path, capsys):
     for k in ("mean_abs_error", "rmse", "max_abs_error"):
         assert abs(got[k] - ref[k]) < 1e-6, k
     assert os.path.getsize(rec) > 1000
-    with pytest.raises(NotImplementedError, match="SimulationServer"):
-        tcli.main(["sim-bench"] + cpu)
+    # sim-bench, ported now: the fast integrator and the batch ESDF at a
+    # small size print the TSDF and ESDF rows.
+    out = _run(tcli.main, ["sim-bench", "--voxel-size", "0.4", "--viewpoints",
+                           "2", "--width", "32", "--height", "24",
+                           "--max-blocks", "64", "--method", "fast",
+                           "--batch-esdf"] + cpu, capsys)
+    assert "TSDF: rmse=" in out and "ESDF: rmse=" in out, out
+    assert "integrate/fast" in out and "OCC:" not in out, out
 
 
 def test_cli_replay_on_cpu(tmp_path, capsys):

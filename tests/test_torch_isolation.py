@@ -52,7 +52,12 @@ def test_import_leaves_jax_out():
             "voxblox_tpu_torch.utils.lie, voxblox_tpu_torch.utils.planning, "
             "voxblox_tpu_torch.utils.timing, "
             "voxblox_tpu_torch.utils.color_maps, "
-            "voxblox_tpu_torch.utils.mesh_vis; "
+            "voxblox_tpu_torch.utils.mesh_vis, voxblox_tpu_torch.ops.render, "
+            "voxblox_tpu_torch.ops.occupancy, "
+            "voxblox_tpu_torch.ops.intensity, "
+            "voxblox_tpu_torch.ops.transform, "
+            "voxblox_tpu_torch.utils.evaluation, "
+            "voxblox_tpu_torch.utils.camera; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'voxblox_tpu') "
             "or m.startswith('google.protobuf')]; "
@@ -86,6 +91,15 @@ def test_cli_help_leaves_jax_and_protobuf_out():
         [sys.executable, "-m", "voxblox_tpu_torch.server.cli", "--help"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and "sim-bench" in proc.stdout, proc.stderr
+    assert "not ported" not in proc.stdout
+    proc = subprocess.run(
+        [sys.executable, "-m", "voxblox_tpu_torch.server.cli", "sim-bench",
+         "--help"], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    for flag in ("--occupancy", "--batch-esdf", "--output-mesh",
+                 "--output-map", "--device"):
+        assert flag in proc.stdout, flag
 
 
 def test_no_gpu_means_raise_not_fallback():

@@ -345,16 +345,20 @@ def test_two_cm_allocation_and_budget_ladder_match_jax(tmp_path):
     assert ((gw > 0) != (rw > 0)).sum() <= observed * 1e-5
 
 
-def test_unported_requests_raise(tmp_path):
-    """What is not ported raises (``cli sim-bench``); the ray-casting
-    methods, the spherical kinds, full-Euclidean ESDF, distance pruning,
-    ICP and clear spheres construct and run one tiny scan; map files and
-    PLY export write and read back."""
+def test_unported_requests_raise(tmp_path, capsys):
+    """Bad requests raise, and ``cli sim-bench`` (ported now) runs the
+    projective integrator at a small size; the ray-casting methods, the
+    spherical kinds, full-Euclidean ESDF, distance pruning, ICP and clear
+    spheres construct and run one tiny scan; map files and PLY export
+    write and read back."""
     from voxblox_tpu_torch.server import cli
 
     kw = dict(device="cpu")
-    with pytest.raises(NotImplementedError):
-        cli.main(["sim-bench", "--device", "cpu"])
+    assert cli.main(["sim-bench", "--device", "cpu", "--voxel-size", "0.4",
+                     "--viewpoints", "1", "--width", "32", "--height", "24",
+                     "--max-blocks", "64", "--method", "projective"]) == 0
+    out = capsys.readouterr().out
+    assert "TSDF: rmse=" in out and "integrate/projective" in out, out
     with pytest.raises(ValueError):
         TsdfServer(method="bogus", **kw)
     with pytest.raises(ValueError):

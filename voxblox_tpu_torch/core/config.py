@@ -73,6 +73,19 @@ class EsdfIntegratorConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class OccupancyIntegratorConfig:
+    probability_hit: float = 0.65
+    probability_miss: float = 0.4
+    threshold_min: float = 0.12
+    threshold_max: float = 0.97
+    threshold_occupancy: float = 0.7
+    min_ray_length_m: float = 0.1
+    max_ray_length_m: float = 5.0
+    max_steps: Optional[int] = None
+    max_points: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class MeshIntegratorConfig:
     use_color: bool = True
     min_weight: float = 1e-4
@@ -110,7 +123,7 @@ def derive_defaults(
 _CONFIGS = {
     c.__name__: c
     for c in (MapConfig, TsdfIntegratorConfig, EsdfIntegratorConfig,
-              MeshIntegratorConfig, IcpConfig)
+              OccupancyIntegratorConfig, MeshIntegratorConfig, IcpConfig)
 }
 
 

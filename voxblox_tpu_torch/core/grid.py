@@ -63,6 +63,16 @@ def linear_to_local(lin, vps: int):
     return torch.stack([x, y, z], dim=-1)
 
 
+def log_odds_from_probability(p):
+    """common.h:261-264."""
+    return torch.log(p / (1.0 - p))
+
+
+def probability_from_log_odds(lo):
+    """common.h:266-268."""
+    return 1.0 - 1.0 / (1.0 + torch.exp(lo))
+
+
 def pack_block_index(block_ijk):
     """int32[...,3] -> (w0, w1): w0 = (x & 0xffff) | (y + 2^15) << 16,
     w1 = z + 2^15. Computed in int64 and wrapped to int32 like the JAX

@@ -156,6 +156,25 @@ def put_rows(dst, rows, ok, vals):
     return dst
 
 
+def put_last(dst, idx, ok, vals):
+    """In-place ``dst.at[where(ok, idx, len(dst))].set(vals, mode="drop")``
+    with duplicate targets: the last lane wins, as in the JAX CPU
+    scatter's lane order, made explicit with a scatter-max of lane ids (a
+    plain ``index_put_`` of duplicates on the GPU keeps an arbitrary one)."""
+    n = dst.shape[0]
+    idx = idx.reshape(-1).to(torch.int64)
+    ok = ok.reshape(-1)
+    lanes = torch.arange(idx.shape[0], dtype=torch.int64, device=dst.device)
+    win = torch.full((n + 1,), -1, dtype=torch.int64, device=dst.device)
+    win.scatter_reduce_(0, torch.where(ok, idx, n), lanes, "amax")
+    win = win[:n]
+    hit = win >= 0
+    src = vals.reshape((-1,) + dst.shape[1:])[torch.where(hit, win, 0)]
+    okb = hit.view((-1,) + (1,) * (dst.dim() - 1))
+    dst.copy_(torch.where(okb, src.to(dst.dtype), dst))
+    return dst
+
+
 def scatter_mask(n: int, idx, ok):
     """bool[n]: ``zeros(n+1).at[where(ok, idx, n)].set(True)[:-1]``."""
     out = torch.zeros(n + 1, dtype=torch.bool, device=idx.device)
@@ -187,9 +206,11 @@ def cube_rows(layer: VoxelLayer, name: str, rows):
 def lookup_blocks(layer: VoxelLayer, block_ijk, max_psl: int | None = None):
     """int32[...,3] block indices -> int32[...] pool rows (-1 missing).
     ``max_psl``: the table's probe bound as a host int, if already read
-    (``vhash.lookup``)."""
+    (``vhash.lookup``). A key inserted past a full pool has no row and
+    reads as missing (JAX drops the writes aimed past the pool)."""
     w0, w1 = grid.pack_block_index(block_ijk)
-    return vhash.lookup(layer.table, w0, w1, max_psl)
+    slot = vhash.lookup(layer.table, w0, w1, max_psl)
+    return torch.where(slot < layer.max_blocks, slot, -1)
 
 
 def global_voxel_to_flat(layer: VoxelLayer, global_ijk,

@@ -187,9 +187,11 @@ def adaptive_distance_and_gradient(layer, points, channel: str | None = None,
     return dist, grad, nn_ok & (use_interp_grad | fb_ok)
 
 
-def interpolate_trilinear_color(layer, points):
-    """Trilinear colour of a TSDF layer: (rgb [Q,3], valid [Q])."""
+def interpolate_trilinear_color(layer, points, max_psl: int | None = None):
+    """Trilinear colour of a TSDF layer: (rgb [Q,3], valid [Q]);
+    differentiable in ``points`` and the colour channel."""
     low, frac = _corner_setup(points, layer.voxel_size)
-    vals, found = vlayer.get_voxels(layer, "color", _corners(low))
+    vals, found = vlayer.get_voxels(layer, "color", _corners(low),
+                                    max_psl=max_psl)
     out = torch.sum(_trilinear_weights(frac)[..., None] * vals, dim=-2)
     return out, found[..., 0].all(-1)

@@ -9,7 +9,9 @@ equivalents of the reference's standalone binaries:
 - ``tsdf-to-esdf`` <- test/tsdf_to_esdf.cc: offline ESDF regeneration.
 - ``traversable``  the ESDF's traversable cloud (distance > robot radius).
 - ``info``         the layer headers of a map file.
-- ``sim-bench``    registered, not ported yet (it raises).
+- ``sim-bench``    <- SimulationServer + simulation_eval.cc: the synthetic
+  end-to-end benchmark (render -> integrate -> ESDF -> evaluate against
+  ground truth), with ``--occupancy`` also occupancy and its ESDF.
 
 Every command takes ``--device`` (default ``cuda``; ``cpu`` runs the port
 on the CPU). Usage: ``python -m voxblox_tpu_torch.server.cli <command>``.
@@ -26,10 +28,42 @@ import numpy as np
 
 
 def cmd_sim_bench(args):
-    raise NotImplementedError(
-        "sim-bench is not ported yet: it needs SimulationServer, the "
-        "ground-truth layers of sim/world.generate_gt_layer and "
-        "utils/evaluation.py (and occupancy for --occupancy)")
+    from ..sim import world as sw
+    from ..utils import timing
+    from .mapper import SimulationServer
+
+    w = sw.SimulationWorld()
+    w.add_cylinder((0.0, 0.0, 2.0), 2.0, 4.0, color=(0, 255, 0))
+    w.add_ground_level(0.0)
+    w.min_bound = np.array([-5.0, -5.0, -0.5], np.float32)
+    w.max_bound = np.array([5.0, 5.0, 5.5], np.float32)
+    srv = SimulationServer(
+        w, voxel_size=args.voxel_size, method=args.method,
+        camera_res=(args.width, args.height), max_blocks=args.max_blocks,
+        incremental_esdf=not args.batch_esdf,
+        generate_occupancy=args.occupancy, device=args.device)
+    result = srv.run(n_viewpoints=args.viewpoints, seed=args.seed)
+    print("TSDF:", result["tsdf"])
+    print("ESDF:", result["esdf"])
+    if args.occupancy:
+        print("OCC:", result["occ"])
+        print("ESDF-OCC:", result["esdf_occ"])
+    print(timing.print_timing())
+    if args.output_mesh:
+        from ..io import ply
+        from ..ops import mesh as mesh_ops
+
+        ml = mesh_ops.MeshLayer(srv.tsdf_layer.block_size)
+        mesh_ops.generate_mesh(srv.tsdf_layer, ml, only_updated=False)
+        ply.mesh_layer_to_ply(ml, args.output_mesh)
+        print(f"mesh written to {args.output_mesh}")
+    if args.output_map:
+        from ..io import layer_io
+
+        layer_io.save_layer(srv.tsdf_layer, args.output_map)
+        layer_io.save_layer(srv.esdf_layer, args.output_map, append=True)
+        print(f"map written to {args.output_map}")
+    return 0
 
 
 def cmd_eval(args):
@@ -206,7 +240,7 @@ def main(argv=None):
         return sp
 
     sb = add("sim-bench", cmd_sim_bench,
-             help="synthetic end-to-end benchmark (not ported yet)")
+             help="synthetic end-to-end benchmark")
     sb.add_argument("--voxel-size", type=float, default=0.1)
     sb.add_argument("--method", default="merged",
                     choices=["simple", "merged", "fast", "projective"])

@@ -25,11 +25,16 @@ after each scan. ``save_map`` / ``load_map`` take .vxblx files (the ESDF
 appended after the TSDF) or .npz checkpoints. Per-stage host timers
 (``utils/timing``, the JAX package's tags) feed ``stats()``.
 
-Not ported yet: intensity and the simulation server.
+- ``IntensityServer``: projects intensity images or bearing sets onto the
+  TSDF surface (intensity_server.{h,cc}).
+- ``SimulationServer``: the self-contained synthetic benchmark
+  (simulation_server.cc): random viewpoints -> render -> integrate the
+  TSDF (and occupancy) -> ESDF -> every built layer against ground truth.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -43,15 +48,20 @@ from ..core.config import (
     IcpConfig,
     MapConfig,
     MeshIntegratorConfig,
+    OccupancyIntegratorConfig,
     TsdfIntegratorConfig,
+    derive_defaults,
 )
 from ..io import layer_io, mesh_msg, npz_io, ply
 from ..ops import esdf as esdf_ops
 from ..ops import icp as icp_ops
+from ..ops import intensity as intensity_ops
 from ..ops import mesh as mesh_ops
+from ..ops import occupancy as occupancy_ops
 from ..ops import projective as projective_ops
 from ..ops import tsdf as tsdf_ops
-from ..utils import planning, timing
+from ..sim import world as sw
+from ..utils import evaluation, planning, timing
 
 METHODS = ("projective", "simple", "merged", "fast")
 PROJECTIVE_KINDS = ("pinhole", "spherical", "spherical_organized")
@@ -554,3 +564,216 @@ class EsdfServer(TsdfServer):
                     device=self.device)
         except (ValueError, FileNotFoundError):
             self.update_esdf_batch()
+
+
+class IntensityServer(EsdfServer):
+    """Thermal projection service (intensity_server.{h,cc})."""
+
+    def __init__(self, *a, intensity_max_distance: float = 30.0,
+                 prop_voxel_radius: int = 2, **kw):
+        super().__init__(*a, **kw)
+        self.intensity_max_distance = intensity_max_distance
+        self.prop_voxel_radius = prop_voxel_radius
+        mc = self.map_config
+        self.intensity_layer = vlayer.make_layer(
+            "intensity", mc.voxel_size, vps=mc.voxels_per_side,
+            max_blocks=mc.max_blocks, device=self.device)
+
+    def insert_intensity(self, origin, bearing_vectors, intensities) -> int:
+        """Splat intensities along bearings from ``origin`` onto the TSDF
+        surface. Returns the number of rays that hit it (one host read)."""
+        with timing.timer("intensity/integrate"):
+            self.intensity_layer, hits = (
+                intensity_ops.add_intensity_bearing_vectors(
+                    self.intensity_layer, self.layer, self._tensor(origin),
+                    self._tensor(bearing_vectors), self._tensor(intensities),
+                    max_distance=self.intensity_max_distance,
+                    prop_voxel_radius=self.prop_voxel_radius))
+        return _runtime.host_int(hits.sum())
+
+    def insert_intensity_image(self, T_G_C, image, intrinsics,
+                               subsample: int = 4) -> int:
+        """Thermal image front end (intensity_server.cc:50-120): every
+        ``subsample``-th pixel's bearing through the intrinsics (fx, fy,
+        cx, cy), rotated to the world, splatted onto the TSDF surface."""
+        image = (_runtime.to_host(image) if isinstance(image, torch.Tensor)
+                 else np.asarray(image)).astype(np.float32)
+        h, w = image.shape
+        fx, fy, cx, cy = intrinsics
+        us, vs = np.meshgrid(np.arange(0, w, subsample),
+                             np.arange(0, h, subsample))
+        rays_C = np.stack([(us - cx) / fx, (vs - cy) / fy,
+                           np.ones_like(us, np.float32)], -1
+                          ).reshape(-1, 3).astype(np.float32)
+        rays_C /= np.linalg.norm(rays_C, axis=1, keepdims=True)
+        R, t = self._pose(T_G_C)
+        rays_G = rays_C @ _runtime.to_host(R).T
+        vals = image[vs, us].reshape(-1)
+        return self.insert_intensity(t, rays_G, vals)
+
+
+class SimulationServer:
+    """End-to-end synthetic benchmark (simulation_server.cc) on ``device``
+    (default CUDA): random viewpoints -> render -> integrate the TSDF
+    (and, with ``generate_occupancy``, occupancy; cc:235-237) -> ESDF from
+    the TSDF (and from occupancy, cc:265-269) -> every built layer against
+    ground truth (cc:279-287)."""
+
+    def __init__(self, world, voxel_size: float = 0.1, vps: int = 16,
+                 max_blocks: int = 4096,
+                 tsdf_config: Optional[TsdfIntegratorConfig] = None,
+                 esdf_config: Optional[EsdfIntegratorConfig] = None,
+                 method: str = "merged", camera_res=(320, 240),
+                 fov_h_deg: float = 90.0, max_dist: float = 10.0,
+                 incremental_esdf: bool = True,
+                 generate_occupancy: bool = False, device=None):
+        if method not in METHODS:
+            raise ValueError(f"method must be one of {METHODS}, not "
+                             f"{method!r}")
+        self.device = _runtime.resolve_device(device)
+        self.world = world
+        self.objects = world.freeze(self.device)
+        tcfg, ecfg = derive_defaults(voxel_size, tsdf_config, esdf_config)
+        self.tsdf_cfg = dataclasses.replace(tcfg, max_ray_length_m=max_dist)
+        self.esdf_cfg = esdf_config or ecfg
+        self.method = method
+        self.camera_res = tuple(camera_res)
+        self.fov = float(np.deg2rad(fov_h_deg))
+        self.max_dist = max_dist
+        self.incremental_esdf = incremental_esdf
+        self.voxel_size = voxel_size
+
+        def layer(kind):
+            return vlayer.make_layer(kind, voxel_size, vps=vps,
+                                     max_blocks=max_blocks,
+                                     device=self.device)
+
+        self.tsdf_layer = layer("tsdf")
+        self.esdf_layer = layer("esdf")
+        self.generate_occupancy = generate_occupancy
+        if generate_occupancy:
+            self.occ_cfg = OccupancyIntegratorConfig(
+                max_ray_length_m=max_dist)
+            self.occ_layer = layer("occupancy")
+            self.esdf_occ_layer = layer("esdf")
+        self.fast_state = tsdf_ops.make_fast_state(device=self.device)
+
+    def generate_poses(self, n: int, radius: float = 0.8, seed: int = 0):
+        """Random plausible viewpoints looking at the world's centre
+        (simulation_server.cc:161-197): positions drawn from
+        ``np.random.default_rng(seed)``, rejected within 0.5 m of an
+        object (one host read a draw)."""
+        rng = np.random.default_rng(seed)
+        lo, hi = self.world.min_bound, self.world.max_bound
+        center = (np.asarray(lo) + np.asarray(hi)) / 2.0
+        poses = []
+        for _ in range(n):
+            for _attempt in range(64):
+                pos = rng.uniform(lo + 0.05 * (hi - lo),
+                                  hi - 0.05 * (hi - lo))
+                d, _ = sw.distance_to_point(
+                    self.objects, torch.as_tensor(
+                        pos, dtype=torch.float32, device=self.device), 1e6)
+                if _runtime.host_bool(d > 0.5):
+                    break
+            z = center - pos
+            z = z / np.linalg.norm(z)
+            aux = np.array([0.0, 0.0, 1.0])
+            if abs(np.dot(z, aux)) > 0.95:
+                aux = np.array([1.0, 0.0, 0.0])
+            x = np.cross(z, aux)
+            x /= np.linalg.norm(x)
+            y = np.cross(z, x)
+            R = np.stack([x, y, z], 1).astype(np.float32)
+            poses.append((torch.as_tensor(R, device=self.device),
+                          torch.as_tensor(pos, dtype=torch.float32,
+                                          device=self.device)))
+        return poses
+
+    def integrate_viewpoint(self, pose):
+        """Render one viewpoint, noise-free, and integrate it (TSDF,
+        occupancy, the incremental ESDF)."""
+        with timing.timer("sim/render"):
+            pts_G, colors, valid = sw.pointcloud_from_transform(
+                self.objects, pose, self.camera_res, self.fov, self.max_dist)
+            pts_C = sw.world_points_to_sensor(pose, pts_G, valid)
+        with timing.timer(f"integrate/{self.method}"):
+            if self.method == "projective":
+                self.tsdf_layer, p_ovf, b_ovf = (
+                    projective_ops.integrate_pointcloud_projective(
+                        self.tsdf_layer, pose, pts_C, colors, self.tsdf_cfg,
+                        resolution=self.camera_res, fov_h_rad=self.fov))
+                overflow = p_ovf | b_ovf
+            else:
+                self.tsdf_layer, self.fast_state, overflow = (
+                    tsdf_ops.integrate_pointcloud(
+                        self.tsdf_layer, pose, pts_C, colors, self.tsdf_cfg,
+                        method=self.method, state=self.fast_state))
+            _sync(self.device)
+        assert not _runtime.host_bool(overflow), "pool overflow"
+        if self.generate_occupancy:
+            with timing.timer("integrate/occupancy"):
+                self.occ_layer, occ_ovf = occupancy_ops.integrate_pointcloud(
+                    self.occ_layer, pose, pts_C, self.occ_cfg)
+                _sync(self.device)
+            assert not _runtime.host_bool(occ_ovf), "occupancy pool overflow"
+        if self.incremental_esdf:
+            with timing.timer("esdf/update_esdf"):
+                self.esdf_layer, self.tsdf_layer, _, _ = (
+                    esdf_ops.update_from_tsdf_incremental(
+                        self.esdf_layer, self.tsdf_layer, self.esdf_cfg))
+                _sync(self.device)
+
+    def _occupancy_row(self, gt_esdf) -> dict:
+        """Voxelwise occupancy classification against the GT SDF's sign,
+        outside the +-1-voxel band where the threshold is ambiguous (a
+        quantitative stand-in for the reference's visual check)."""
+        occ = self.occ_layer
+        slot_gt = vlayer.lookup_blocks(gt_esdf, occ.block_ijk)
+        sel = occ.active_mask() & (slot_gt >= 0)
+        gt_d = gt_esdf.channels["esdf"][torch.where(sel, slot_gt, 0).to(
+            torch.int64)]
+        lo = occ.channels["log_odds"]
+        obs = (occ.channels["occ_observed"] != 0) & sel[:, None]
+        m = obs & (gt_d.abs() > self.voxel_size)
+        wrong = (lo > 0.0) != (gt_d <= 0.0)
+        n_eval, n_wrong = _runtime.host_ints([m.sum(), (m & wrong).sum()])
+        return {"misclassified_frac": n_wrong / max(1, n_eval),
+                "num_evaluated_voxels": n_eval}
+
+    def run(self, n_viewpoints: int = 20, seed: int = 0) -> dict:
+        """Integrate ``n_viewpoints`` random viewpoints, then evaluate:
+        {"tsdf", "esdf"[, "occ", "esdf_occ"], "timing"}."""
+        for pose in self.generate_poses(n_viewpoints, seed=seed):
+            self.integrate_viewpoint(pose)
+        if not self.incremental_esdf:
+            self.esdf_layer, _, _ = esdf_ops.update_from_tsdf_batch(
+                self.esdf_layer, self.tsdf_layer, self.esdf_cfg)
+        gt = {kind: sw.generate_gt_layer(
+            self.objects, kind, self.voxel_size, self.world.min_bound,
+            self.world.max_bound, max_dist=max_dist,
+            vps=self.tsdf_layer.vps, max_blocks=2 * self.tsdf_layer.max_blocks)
+            for kind, max_dist in (
+                ("tsdf", self.tsdf_cfg.default_truncation_distance),
+                ("esdf", self.esdf_cfg.max_distance_m))}
+        result = {kind: evaluation.evaluate_layers_rmse(
+            gt[kind], layer, ignore_behind_test_surface=True)
+            for kind, layer in (("tsdf", self.tsdf_layer),
+                                ("esdf", self.esdf_layer))}
+        if self.generate_occupancy:
+            self.esdf_occ_layer, _, _ = (
+                occupancy_ops.esdf_from_occupancy_batch(
+                    self.esdf_occ_layer, self.occ_layer, self.esdf_cfg))
+            result["occ"] = self._occupancy_row(gt["esdf"])
+            result["esdf_occ"] = evaluation.evaluate_layers_rmse(
+                gt["esdf"], self.esdf_occ_layer,
+                ignore_behind_test_surface=True)
+        result["timing"] = timing.as_dict()
+        return result
+
+
+def _sync(device):
+    """Wait for the device, so that a stage's host timer spans its work
+    (the JAX package's ``block_until_ready``)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,12 +1,12 @@
-"""Simulation world: synthetic depth and lidar scans and analytic
-distances (port of voxblox_tpu/sim/world.py, without the ground-truth
-layers).
+"""Simulation world: synthetic depth and lidar scans, analytic distances
+and ground-truth layers (port of voxblox_tpu/sim/world.py).
 
 Pinhole rays follow the reference pixel convention (focal = W / (2 tan
 (fov/2))); ``organized_pointcloud_from_transform`` renders the raster-
 ordered [H, W, 3] clouds the online bench feeds the mapper, and
 ``spherical_pointcloud_from_transform`` the ring-major scans of a
-spinning lidar.
+spinning lidar. ``generate_gt_layer`` fills a dense TSDF or ESDF layer
+with the scene's distances over the world's bounds.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ import numpy as np
 import torch
 
 from .. import _runtime
+from ..core import grid
+from ..core import layer as vlayer
 from . import objects as sim_objects
 from .objects import ObjectSet, make_object_set
 
@@ -25,6 +27,10 @@ from .objects import ObjectSet, make_object_set
 @dataclasses.dataclass
 class SimulationWorld:
     objects: List[dict] = dataclasses.field(default_factory=list)
+    min_bound: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.array([-5.0, -5.0, -1.0], np.float32))
+    max_bound: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.array([5.0, 5.0, 9.0], np.float32))
 
     def add_sphere(self, center, radius, color=(255, 255, 255)):
         self.objects.append(dict(kind=sim_objects.SPHERE, center=center,
@@ -196,3 +202,63 @@ def world_points_to_sensor(T_G_C, points_G, valid):
     R, t = T_G_C
     p = (points_G - t) @ R
     return torch.where(valid[:, None], p, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Ground-truth SDF layers
+# ---------------------------------------------------------------------------
+
+_GT_CHUNK = 1 << 20  # voxel centres evaluated per pass
+
+
+def generate_gt_layer(objects: ObjectSet, layer_type: str, voxel_size: float,
+                      min_bound, max_bound, max_dist: float, vps: int = 16,
+                      max_blocks: int = 8192) -> vlayer.VoxelLayer:
+    """A dense GT layer over [min_bound, max_bound] on the objects' device
+    (simulation_world_inl.h:13-70): every voxel centre of the covering
+    blocks gets distance = max(min over objects, -max_dist); inside the
+    bounds a TSDF has weight 1 and the object's colour, an ESDF the
+    observed flag. Raises AssertionError when the pool is too small."""
+    dev = objects.center.device
+    block_size = voxel_size * vps
+    min_b = np.asarray(min_bound, np.float64) - block_size / 2.0
+    max_b = np.asarray(max_bound, np.float64) + block_size / 2.0
+    lo = np.floor(min_b / block_size).astype(np.int64)
+    hi = np.floor(max_b / block_size).astype(np.int64)
+    axes = [np.arange(lo[i], hi[i] + 1) for i in range(3)]
+    blocks = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    n = len(blocks)
+    assert n <= max_blocks, f"GT world needs {n} blocks > pool {max_blocks}"
+    layer = vlayer.make_layer(layer_type, voxel_size, vps=vps,
+                              max_blocks=max_blocks, device=dev)
+    ijk = torch.as_tensor(blocks, dtype=torch.int32, device=dev)
+    layer, overflow = vlayer.allocate_blocks(
+        layer, ijk, torch.ones(n, dtype=torch.bool, device=dev))
+    assert not _runtime.host_bool(overflow)
+    slots = vlayer.lookup_blocks(layer, ijk).to(torch.int64)
+    vpb = vps ** 3
+    local = grid.linear_to_local(
+        torch.arange(vpb, dtype=torch.int32, device=dev), vps)
+    lo_t = torch.as_tensor(np.asarray(min_bound, np.float32), device=dev)
+    hi_t = torch.as_tensor(np.asarray(max_bound, np.float32), device=dev)
+    ch = layer.channels
+    if layer_type not in ("tsdf", "esdf"):
+        raise ValueError(layer_type)
+    step = max(1, _GT_CHUNK // vpb)
+    for b0 in range(0, n, step):
+        rows = slots[b0:b0 + step]
+        gvi = ijk[b0:b0 + step, None, :] * vps + local
+        centres = grid.grid_index_to_center_point(gvi, voxel_size)
+        d, color = distance_to_point(objects, centres, max_dist)
+        d = torch.clamp(d, min=-max_dist)
+        inside = ((centres >= lo_t) & (centres <= hi_t)).all(-1)
+        if layer_type == "tsdf":
+            ch["tsdf"][rows] = torch.where(inside, d, 0.0)
+            ch["weight"][rows] = inside.to(torch.float32)
+            ch["color"][rows] = torch.where(
+                inside[..., None], color, 0.0).reshape(len(rows), -1)
+        else:
+            ch["esdf"][rows] = torch.where(inside, d, 0.0)
+            ch["esdf_flags"][rows] = torch.where(
+                inside, vlayer.ESDF_OBSERVED, 0).to(torch.uint8)
+    return layer
