@@ -8,8 +8,9 @@ stress_bench.py), the batched TSDF throughput path (bench.py section 1),
 the velodyne street map (bench.py's velodyne section), the three
 ray-casting integrators, the full-Euclidean ESDF, the map queries, map
 files, mesh messages, ICP, the command line's bag replay, the renderer
-(bench.py's render section), `cli sim-bench` with occupancy, intensity
-and layer transforms.
+(bench.py's render section), `cli sim-bench` with occupancy, intensity,
+layer transforms and multi-GPU sharding (one rank over NCCL, two ranks
+sharing the card over gloo).
 
     python3 chip_smoke.py             # the check (one card, a few minutes)
     python3 chip_smoke.py --profile   # + torch.profiler windows
@@ -95,6 +96,21 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
  21 transform transform_layer of the phase-3 TSDF (10 deg yaw, 0.1 m) and
              back, merge_layers, evaluate_layer_rmse_at_poses; against a
              CPU copy
+ 22 shard    (after 11) parallel/sharding.py: (a) one rank over NCCL in
+             this process, at full width: the ray-sharded simple integrate
+             of orbit scan 0 (307,200 points, 5 m rays, 4096 blocks), the
+             32 orbit scans scan-sharded (budgets 192/1920/256), the
+             block-sharded sweep of the phase-3 map (unit and strided
+             schedule) and of the 2 cm map over its 6144-block pool, the
+             ray-sharded render loss + gradient of 65,536 rays on the
+             tsdf-batch map; each against its unsharded call on the card
+             (sweeps bit-equal, integrates at tests/test_parallel.py's
+             bounds, loss rel 1e-3, gradient 1e-4); K1/K2 counted on the
+             sharded sweeps; K1 at the rows rank 0 of two relaxes.
+             (b) two spawned ranks sharing the card over gloo, the 5 cm
+             calls, the same checks, every rank's results the same bits.
+             Seconds, and count, bytes and seconds of each collective,
+             per call
 Prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -496,14 +512,20 @@ def k1_phase(n, dev, voxel, max_distance, path, inputs=None):
              voxel_size=voxel, max_distance=max_distance))
 
 
-def k2_phase(n, dev):
-    """K2 at ``n`` padded blocks with the batch rebuild's schedule."""
-    inputs = [structured_relax_inputs(n, seed, dev, STRIDES)
-              for seed in range(7)]
+def k2_phase(n, dev, path="strided batch rebuild", inputs=None):
+    """K2 at ``n`` padded blocks with the batch rebuild's schedule, on
+    ``inputs`` = (d, obs, upd, act, codes) tuples taken from ``path`` or
+    else on structured random inputs."""
+    synthetic = inputs is None
+    if synthetic:
+        inputs = [structured_relax_inputs(n, seed, dev, STRIDES)
+                  for seed in range(7)]
     act = statistics.median(int(x[3].sum()) for x in inputs)
     code = torch.maximum(*inputs[0][4])
     admitted = [int((code >= lvl).sum()) for lvl in (1, 2, 3)]
-    assert all(a > 0 for a in admitted), admitted
+    # Random inputs must reach every level; a path's own data at least the
+    # first (some voxel takes a jump, so the strided reads run).
+    assert all(a > 0 for a in admitted[:3 if synthetic else 1]), admitted
 
     def kernel(x):
         before = esdf_relax.STRIDED_LAUNCHES
@@ -517,9 +539,10 @@ def k2_phase(n, dev):
                                       strides=STRIDES, codes=x[4])
 
     return kernel_phase(
-        "kernel K2", inputs, kernel, plain,
+        f"kernel K2 ({path})", inputs, kernel, plain,
         lambda x: relax_work(x, STRIDES, VOXEL, 2.0, x[4]),
-        dict(n_blocks=n, active_blocks=act, strides=list(STRIDES),
+        dict(path=path, n_blocks=n, active_blocks=act,
+             strides=list(STRIDES), voxel_size=VOXEL, max_distance=2.0,
              admitted_voxels_per_level=admitted))
 
 
@@ -2313,6 +2336,408 @@ def transform_phase(tsdf_layer, dev):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: multi-GPU sharding (voxblox_tpu_torch/parallel/sharding.py)
+# ---------------------------------------------------------------------------
+
+# The online map's sweep: batch_phase's configuration (bench.py:269-274).
+SHARD_ESDF = dict(max_distance_m=2.0, default_distance_m=2.0,
+                  min_distance_m=2 * VOXEL, max_active_blocks=1024,
+                  use_pallas_kernel=True, inner_sweeps=4)
+SHARD_TARGET_M = 2.5  # render target depth (tests/test_parallel.py's)
+SHARD_WORLD = 2  # ranks of the gloo run on the one card
+SHARD_MIN_VOXELS = 20_000  # observed voxels one 640x480 scan must give
+
+
+def shard_sweep_cfgs(stress_cfg=None):
+    cfgs = {"online_unit": EsdfIntegratorConfig(**SHARD_ESDF),
+            "online_strided": EsdfIntegratorConfig(**SHARD_ESDF,
+                                                   sweep_strides=STRIDES)}
+    if stress_cfg is not None:
+        cfgs["stress_unit"] = stress_cfg
+    return cfgs
+
+
+def _shard_tsdf_cfg():
+    return TsdfIntegratorConfig(default_truncation_distance=4 * VOXEL,
+                                max_ray_length_m=5.0)
+
+
+def _shard_batch_args(scans, intr):
+    return ([torch.stack([s[i] for s in scans]) for i in range(4)]
+            + [_shard_tsdf_cfg()]), dict(
+        kind="pinhole_organized", intrinsics=intr, pool=RES[0] // VIRT[0],
+        max_visible_blocks=192, max_mixed_slabs=1920, max_free_slabs=256)
+
+
+def _shard_render_args(dev):
+    origins, dirs, _ = _render_rays(dev)
+    return origins, dirs, torch.full((RENDER_RAYS,), SHARD_TARGET_M,
+                                     device=dev)
+
+
+def _fresh_tsdf(dev):
+    return vlayer.make_layer("tsdf", VOXEL, vps=16, max_blocks=MAX_BLOCKS,
+                             device=dev)
+
+
+def _collective_summary(log_):
+    """Per collective op: calls, the distinct byte sizes, and the total
+    and largest seconds of one call (CUDA events around each on the
+    card, no host sync)."""
+    out = {}
+    for c in log_:
+        o = out.setdefault(c["op"], dict(n=0, bytes_each=[], s_total=0.0,
+                                         s_max=0.0))
+        o["n"] += 1
+        if c["bytes"] not in o["bytes_each"]:
+            o["bytes_each"].append(c["bytes"])
+        o["s_total"] += c["s"]
+        o["s_max"] = max(o["s_max"], c["s"])
+    return out
+
+
+def shard_calls(dev, world, scans, intr, online_tsdf, batch_map,
+                stress=None):
+    """The sharded calls of phase 22 on this rank: the ray-sharded simple
+    integrate of orbit scan 0 (640x480 = 307,200 points), the 32 orbit
+    scans scan-sharded, the block-sharded sweeps of the phase-3 map (unit
+    and strided; with ``stress`` = (2 cm TSDF, its ESDF config) also the
+    2 cm map over its whole pool) and the ray-sharded render loss and
+    gradient of 65,536 rays on the tsdf-batch map. Returns (results,
+    records): seconds, collectives (count, bytes and seconds each) and K1
+    and K2 launches per call."""
+    from voxblox_tpu_torch.parallel import sharding
+
+    import torch.distributed as dist
+
+    mesh_rays = sharding.make_mesh(world, rays=world, device_type=dev.type)
+    mesh_blocks = sharding.make_mesh(world, rays=1, device_type=dev.type)
+    res, rec = {}, {"mesh_rays": list(mesh_rays.shape),
+                    "mesh_blocks": list(mesh_blocks.shape)}
+    # NCCL sets a group's communicator up at its first collective: do that
+    # here, so that the calls' records hold the exchange alone.
+    t0 = time.perf_counter()
+    for mesh, axis in ((mesh_rays, "rays"), (mesh_blocks, "blocks")):
+        dist.all_reduce(torch.zeros(1, device=dev), group=mesh.get_group(axis))
+    _sync(dev)
+    rec["group_setup_s"] = time.perf_counter() - t0
+
+    def timed(name, fn):
+        k1 = esdf_relax.LAUNCHES - esdf_relax.STRIDED_LAUNCHES
+        k2 = esdf_relax.STRIDED_LAUNCHES
+        sharding.COLLECTIVES = []
+        _sync(dev)
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            _sync(dev)
+        finally:
+            coll, sharding.COLLECTIVES = sharding.COLLECTIVES, None
+        rec[name] = dict(
+            s=time.perf_counter() - t0,
+            collectives=_collective_summary(
+                sharding.collective_seconds(coll)),
+            k1_launches=esdf_relax.LAUNCHES - esdf_relax.STRIDED_LAUNCHES
+            - k1, k2_launches=esdf_relax.STRIDED_LAUNCHES - k2)
+        return out
+
+    R, t, pts, cols = scans[0]
+    res["integrate"], ovf = timed(
+        "integrate", lambda: sharding.integrate_pointcloud_sharded(
+            mesh_rays, _fresh_tsdf(dev), (R, t), pts.reshape(-1, 3),
+            cols.reshape(-1, 3), _shard_tsdf_cfg()))
+    args, kw = _shard_batch_args(scans, intr)
+    res["projective_batch"], ovf_b = timed(
+        "projective_batch",
+        lambda: sharding.integrate_projective_batch_sharded(
+            mesh_rays, _fresh_tsdf(dev), *args, **kw))
+    rec["overflow"] = _runtime.host_bools([ovf, ovf_b])
+    src = {"online_unit": online_tsdf, "online_strided": online_tsdf}
+    if stress is not None:
+        src["stress_unit"] = stress[0]
+    for name, cfg in shard_sweep_cfgs(stress and stress[1]).items():
+        e = esdf_ops.seeded_layer(src[name], cfg)
+        res[name] = timed(name, lambda: sharding.lower_sweep_sharded(
+            mesh_blocks, e, cfg))
+        rec[name]["iters"] = res[name][1]
+    loss, grad = timed("render", lambda: sharding.render_loss_grad_sharded(
+        mesh_rays, batch_map, *_shard_render_args(dev), RENDER_MAX_DIST))
+    res["render"] = (float(loss), grad)
+    return res, rec
+
+
+def shard_references(dev, scans, intr, online_tsdf, batch_map, stress):
+    """The unsharded results the sharded calls are held to, on the card,
+    and the seconds of each call (timed as ``shard_calls`` times its
+    sharded twin, without the collectives)."""
+    from voxblox_tpu_torch.ops import render
+    from voxblox_tpu_torch.ops import tsdf as tsdf_ops
+
+    seconds = {}
+
+    def timed(name, fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    R, t, pts, cols = scans[0]
+    ref = {}
+    ref["integrate"], _, ovf = timed(
+        "integrate", lambda: tsdf_ops.integrate_pointcloud(
+            _fresh_tsdf(dev), (R, t), pts.reshape(-1, 3),
+            cols.reshape(-1, 3), _shard_tsdf_cfg(), method="simple"))
+    args, kw = _shard_batch_args(scans, intr)
+    kw.pop("kind")
+    ref["projective_batch"], ovf_b = timed(
+        "projective_batch",
+        lambda: projective_ops.integrate_organized_projective_batch(
+            _fresh_tsdf(dev), *args, **kw))
+    assert not any(_runtime.host_bools([ovf, ovf_b]))
+    src = {"online_unit": online_tsdf, "online_strided": online_tsdf,
+           "stress_unit": stress[0]}
+    for name, cfg in shard_sweep_cfgs(stress[1]).items():
+        e = esdf_ops.seeded_layer(src[name], cfg)
+        e, it, r_ovf, _ = timed(name, lambda: esdf_ops.lower_sweep(e, cfg))
+        assert not _runtime.host_bool(r_ovf), name
+        ref[name] = (e, it)
+    origins, dirs, target = _shard_render_args(dev)
+
+    def loss_grad():
+        tsdf = batch_map.channels["tsdf"].detach().clone().requires_grad_(
+            True)
+        depth, hit = render.render_depth(
+            _with_channels(batch_map, tsdf=tsdf), origins, dirs,
+            RENDER_MAX_DIST)
+        err = torch.where(hit, depth - target, 0.0)
+        loss = (err * err).sum()
+        grad, = torch.autograd.grad(loss, tsdf)
+        return float(loss.detach()), grad
+
+    ref["render"] = timed("render", loss_grad)
+    return ref, seconds
+
+
+def shard_check(ref, got, what):
+    """Hold sharded results to the unsharded ones: the sweeps bit for bit
+    (esdf, flags, parents, iterations), the integrates at
+    tests/test_parallel.py's bounds (atomics and collective order), the
+    render loss within rel 1e-3 and its gradient within rel 1e-4 (of
+    max(1, the largest gradient): single voxels sum many rays here)."""
+    from voxblox_tpu_torch.utils import evaluation
+
+    out = {}
+    a, b = ref["integrate"], got["integrate"]
+    assert torch.equal(a.block_ijk, b.block_ijk), what
+    det = evaluation.evaluate_layers_rmse(a, b)
+    well = a.channels["weight"] > 1e-3
+    d = float((a.channels["tsdf"] - b.channels["tsdf"]).abs()[well].max())
+    out["integrate"] = dict(rmse=det.rmse, voxels=det.num_evaluated_voxels,
+                            max_abs_tsdf_well_observed=d)
+    assert det.num_evaluated_voxels > SHARD_MIN_VOXELS and det.rmse < 1e-4, (
+        what, det)
+    assert d < 1e-4, (what, d)
+    a, b = ref["projective_batch"], got["projective_batch"]
+    assert torch.equal(a.block_ijk, b.block_ijk), what
+    det = evaluation.evaluate_layers_rmse(a, b)
+    wd = float((a.channels["weight"] - b.channels["weight"]).abs().max())
+    out["projective_batch"] = dict(rmse=det.rmse, max_abs_weight=wd,
+                                   voxels=det.num_evaluated_voxels)
+    assert det.num_evaluated_voxels > MIN_OBSERVED and det.rmse < 1e-5, (
+        what, det)
+    assert wd < 1e-3, (what, wd)
+    for name in ("online_unit", "online_strided", "stress_unit"):
+        if name not in got:  # the 2 cm sweep runs at W=1 only
+            continue
+        (a, it_a), (b, it_b) = ref[name], got[name]
+        for k in ("esdf", "esdf_flags", "parent"):
+            assert torch.equal(a.channels[k], b.channels[k]), (what, name, k)
+        assert it_a == it_b, (what, name, it_a, it_b)
+        obs = int(((b.channels["esdf_flags"] & 1) != 0).sum())
+        assert obs > MIN_OBSERVED, (what, name, obs)
+        out[name] = dict(bit_equal=True, iters=it_b, observed_voxels=obs)
+    (la, ga), (lb, gb) = ref["render"], got["render"]
+    gd = float((ga - gb).abs().max())
+    out["render"] = dict(loss=lb, ref_loss=la, max_abs_grad=gd,
+                         grad_max=float(ga.abs().max()))
+    assert la > 0.0 and abs(la - lb) < 1e-3 * max(1.0, abs(la)), (what, la,
+                                                                  lb)
+    assert gd < 1e-4 * max(1.0, out["render"]["grad_max"]), (what, gd)
+    log(f"shard {what}: " + json.dumps(out))
+    return out
+
+
+def _digest(x):
+    """A 64-bit checksum of a tensor's bytes, computed on its device."""
+    b = x.detach().contiguous().reshape(-1).view(torch.uint8).to(torch.int64)
+    w = torch.arange(b.numel(), device=b.device) % 65521 + 1
+    return (b * w).sum()
+
+
+def _shard_rank(rank, world, port, tmp, device_type):
+    """One rank of the gloo run on the one card (spawned): the phase-22
+    calls at the 5 cm sizes; every rank's results must be the same bits;
+    rank 0 writes its results for the parent to check. (``device_type``
+    "cpu" only to rehearse the phase on the CPU.)"""
+    import pickle
+
+    import torch.distributed as dist
+
+    from voxblox_tpu_torch.parallel import sharding
+
+    backend = sharding.init_multihost(f"localhost:{port}", world, rank,
+                                      local_device_count=world,
+                                      device_type=device_type)
+    assert backend == "gloo", backend
+    dev = torch.device(device_type)
+    if dev.type == "cuda":
+        esdf_relax._lib()  # phase 2's build; no nvcc here
+    scans, intr = make_scans(dev)
+    with open(os.path.join(tmp, "online_tsdf.pkl"), "rb") as f:
+        online = vlayer.layer_from_numpy(pickle.load(f), dev)
+    with open(os.path.join(tmp, "batch_map.pkl"), "rb") as f:
+        batch_map = vlayer.layer_from_numpy(pickle.load(f), dev)
+    reset_counts()
+    res, rec = shard_calls(dev, world, scans, intr, online, batch_map)
+    tensors = [res["integrate"].channels["tsdf"],
+               res["projective_batch"].channels["tsdf"],
+               res["online_unit"][0].channels["esdf"],
+               res["online_strided"][0].channels["esdf"], res["render"][1]]
+    mine = torch.stack([_digest(x) for x in tensors])
+    parts = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(parts, mine)
+    assert all(torch.equal(p, parts[0]) for p in parts), "ranks differ"
+    rec["backend"] = backend
+    with open(os.path.join(tmp, f"shard_rec_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    if rank == 0:
+        host = {k: vlayer.layer_to_numpy(res[k])
+                for k in ("integrate", "projective_batch")}
+        host.update({k: (vlayer.layer_to_numpy(res[k][0]), res[k][1])
+                     for k in ("online_unit", "online_strided")})
+        host["render"] = (res["render"][0], res["render"][1].cpu())
+        with open(os.path.join(tmp, "shard_res.pkl"), "wb") as f:
+            pickle.dump(host, f, protocol=4)
+    dist.destroy_process_group()
+
+
+def shard_phase(online_tsdf, batch_map, stress_layer, stress_cfg, scans,
+                intr, dev, tmp):
+    """Phase 22: parallel/sharding.py on the card. (a) W=1 in this
+    process over NCCL at full width, the 2 cm sweep included, each call
+    against its unsharded version; K1 and K2 counted on the sharded
+    sweeps only (counts zeroed just before, read just after); K1 and K2
+    against their plain versions on the sweeps' own first inputs, at W=1's
+    rows and at the rows rank 0 of W=2 relaxes. (b) W=2 on the
+    one card over gloo, two spawned ranks, the 5 cm calls; this measures
+    the exchange, not scaling."""
+    import pickle
+    import socket
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from voxblox_tpu_torch.parallel import sharding
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    stress = (stress_layer, stress_cfg)
+    ref, ref_s = shard_references(dev, scans, intr, online_tsdf, batch_map,
+                                  stress)
+    out = {"unsharded_s": ref_s}
+
+    # (a) W=1, NCCL (gloo when rehearsed on the CPU).
+    backend = sharding.init_multihost(f"localhost:{free_port()}", 1, 0,
+                                      device_type=dev.type)
+    # The first relaxation of the sharded online unit sweep (K1) and of
+    # the strided one (K2): the kernels are held to their plain versions
+    # on these inputs below.
+    first = {}
+    relax = esdf_relax.relax
+
+    def capturing(*args, **kwargs):
+        first.setdefault("k2" if kwargs.get("strides") else "k1",
+                         (args, kwargs))
+        return relax(*args, **kwargs)
+
+    esdf_relax.relax = capturing
+    try:
+        reset_counts()
+        got, rec = shard_calls(dev, 1, scans, intr, online_tsdf, batch_map,
+                               stress)
+        launches = dict(
+            k1=esdf_relax.LAUNCHES - esdf_relax.STRIDED_LAUNCHES,
+            k2=esdf_relax.STRIDED_LAUNCHES)
+    finally:
+        esdf_relax.relax = relax
+        dist.destroy_process_group()
+    rec["backend"] = backend
+    rec["launches"] = launches
+    assert not any(rec["overflow"]), rec["overflow"]
+    assert launches["k1"] > 0 and launches["k2"] > 0, launches
+    out["w1"] = dict(rec, checks=shard_check(ref, got, "W=1"))
+    log("shard W=1: " + json.dumps(out["w1"]))
+    del got
+
+    # K1 and K2 at the sharded sweeps' shapes: the whole padded working
+    # set at W=1, and the first ceil(n/2) rows of it, which rank 0 of W=2
+    # relaxes.
+    (d_pad, obs_pad, upd_pad, act, sweeps, voxel, maxd, min_diff), _ = (
+        first["k1"])
+    assert (sweeps, voxel, maxd, min_diff) == (4, VOXEL, 2.0, MIN_DIFF)
+    (d2, obs2, upd2, act2, *_), kw2 = first["k2"]
+    assert tuple(kw2["strides"]) == STRIDES, kw2["strides"]
+    n = d_pad.shape[0]
+    out["kernel_shapes"] = {"k1": [], "k2": []}
+    for rows, who in ((n, "W=1"), (-(-n // SHARD_WORLD),
+                                   f"W={SHARD_WORLD} rank 0")):
+        x1 = tuple(t_[:rows].contiguous()
+                   for t_ in (d_pad, obs_pad, upd_pad, act))
+        out["kernel_shapes"]["k1"].append(k1_phase(
+            rows, dev, voxel, maxd, f"sharded sweep, {who}",
+            inputs=[x1] * 7))
+        x2 = tuple(t_[:rows].contiguous() for t_ in (d2, obs2, upd2, act2)
+                   ) + (tuple(c[:rows].contiguous() for c in kw2["codes"]),)
+        out["kernel_shapes"]["k2"].append(k2_phase(
+            rows, dev, f"sharded strided sweep, {who}", inputs=[x2] * 7))
+    del first
+
+    # (b) W=2 on the one card, gloo.
+    for name, layer in (("online_tsdf", online_tsdf),
+                        ("batch_map", batch_map)):
+        with open(os.path.join(tmp, f"{name}.pkl"), "wb") as f:
+            pickle.dump(vlayer.layer_to_numpy(layer), f, protocol=4)
+    t0 = time.perf_counter()
+    mp.spawn(_shard_rank, args=(SHARD_WORLD, free_port(), tmp, dev.type),
+             nprocs=SHARD_WORLD, join=True)
+    spawn_s = time.perf_counter() - t0
+    with open(os.path.join(tmp, "shard_res.pkl"), "rb") as f:
+        host = pickle.load(f)
+    got = {k: vlayer.layer_from_numpy(host[k], dev)
+           for k in ("integrate", "projective_batch")}
+    got.update({k: (vlayer.layer_from_numpy(host[k][0], dev), host[k][1])
+                for k in ("online_unit", "online_strided")})
+    got["render"] = (host["render"][0], host["render"][1].to(dev))
+    recs = []
+    for r in range(SHARD_WORLD):
+        with open(os.path.join(tmp, f"shard_rec_{r}.json")) as f:
+            recs.append(json.load(f))
+    assert not any(any(r_["overflow"]) for r_ in recs)
+    assert all(r_["online_unit"]["k1_launches"] > 0
+               and r_["online_strided"]["k2_launches"] > 0 for r_ in recs)
+    out[f"w{SHARD_WORLD}"] = dict(ranks=recs, spawn_s=spawn_s,
+                                  checks=shard_check(ref, got,
+                                                     f"W={SHARD_WORLD}"))
+    log(f"shard W={SHARD_WORLD}: " + json.dumps(out[f"w{SHARD_WORLD}"]))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
@@ -2451,6 +2876,7 @@ def main():
         done("intensity")
         out["transform"] = transform_phase(srv.layer, dev)
         done("transform")
+        online_tsdf = srv.layer  # phase 22 shards its ESDF sweep
         del srv
         torch.cuda.empty_cache()
 
@@ -2467,6 +2893,7 @@ def main():
         out["io"]["stress"] = io_phase(stress_srv, dev, tmp, "stress", False)
         done("io stress")
         stress_layer = stress_srv.layer
+        stress_cfg = stress_srv.esdf_cfg
         del stress_srv
         torch.cuda.empty_cache()
 
@@ -2474,6 +2901,13 @@ def main():
         out["tsdf_batch"], batch_layer = tsdf_batch_phase(scans, intr, dev,
                                                           args.profile)
         done("tsdf batch")
+        # 22. Multi-GPU sharding on the maps of phases 3, 10 and 11.
+        out["shard"] = shard_phase(online_tsdf, batch_layer, stress_layer,
+                                   stress_cfg, scans, intr, dev, tmp)
+        k1_other += out["shard"]["kernel_shapes"]["k1"]
+        done("shard")
+        del online_tsdf
+        torch.cuda.empty_cache()
         # 18. The renderer on the tsdf-batch map, and a depth image of the
         # stress map.
         out["render"] = render_phase(batch_layer, stress_layer, scans, intr,
@@ -2526,7 +2960,8 @@ def main():
                  online_loop=launches,
                  batch_unit=out["batch"]["unit"]["launches"],
                  stress_loop=out["stress"]["relax_launches"],
-                 occupancy_batch=occ_k1["launches"]),
+                 occupancy_batch=occ_k1["launches"],
+                 sharded_sweep=out["shard"]["w1"]["launches"]["k1"]),
              other_shapes=[{k: o[k] for k in shape_keys}
                            for o in k1_other]),
         dict(name="esdf_relax_k2", route="cuda", source=src,
@@ -2535,7 +2970,10 @@ def main():
              **{k: k2[k] for k in keys}, library_ms=None,
              ctas_per_sm=ctas["k2"],
              launches_by_path=dict(
-                 batch_strided=out["batch"]["strided"]["strided_launches"])),
+                 batch_strided=out["batch"]["strided"]["strided_launches"],
+                 sharded_sweep=out["shard"]["w1"]["launches"]["k2"]),
+             other_shapes=[{k: o[k] for k in shape_keys}
+                           for o in out["shard"]["kernel_shapes"]["k2"]]),
     ]}
     print(json.dumps(line))
     print(smi)

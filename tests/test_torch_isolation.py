@@ -57,7 +57,8 @@ def test_import_leaves_jax_out():
             "voxblox_tpu_torch.ops.intensity, "
             "voxblox_tpu_torch.ops.transform, "
             "voxblox_tpu_torch.utils.evaluation, "
-            "voxblox_tpu_torch.utils.camera; "
+            "voxblox_tpu_torch.utils.camera, "
+            "voxblox_tpu_torch.parallel.sharding; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'voxblox_tpu') "
             "or m.startswith('google.protobuf')]; "

@@ -451,14 +451,23 @@ def _morton10(rel):
 
 
 def _sweep_on(esdf_layer, d, flags, nbr, region_rows, cfg, write_back_rows,
-              relax_impl: str = "kernel", parent8=None):
+              relax_impl: str = "kernel", parent8=None, shard=None):
     """Relax flat working-set arrays d/flags [n, vpb] with neighbour table
     nbr [n, 27] (rows of the same arrays, -1 missing) to convergence or
     ``cfg.max_outer_sweeps``; write back into the layer (whole pool when
     ``write_back_rows`` is None, else into ``(rows, ok)``). ``parent8``:
     int8 [n, vpb*3] seed offsets of the rows (full-Euclidean). Returns
     (layer, iters, unconverged bool[max_blocks]) — unconverged = rows
-    whose last outer iteration still changed a voxel > min_diff."""
+    whose last outer iteration still changed a voxel > min_diff.
+
+    ``shard`` (parallel/sharding.py's block-sharded sweep): an object whose
+    ``rows(n)`` gives this process's contiguous rows ``(lo, hi)`` and whose
+    ``gather(x, n)`` concatenates every process's rows of ``x`` in order.
+    Each outer iteration then relaxes only the own rows and gathers the
+    result, so the halo exchange and the convergence test run on the same
+    full arrays everywhere and every process leaves the loop together. A
+    row's relaxation reads only its own padded cube, so the result is the
+    unsharded one bit for bit."""
     v = esdf_layer.vps
     n = d.shape[0]
     mb = esdf_layer.max_blocks
@@ -483,14 +492,20 @@ def _sweep_on(esdf_layer, d, flags, nbr, region_rows, cfg, write_back_rows,
     relax = esdf_relax.relax if relax_impl == "kernel" else (
         esdf_relax.relax_plain)
     upd_c = upd.view(n, v, v, v)
+    own = slice(None) if shard is None else slice(*shard.rows(n))
+
+    def merged(x):  # the own rows of x -> every row
+        return x if shard is None else shard.gather(x, n)
+
+    obs_own, upd_own, upd_c_own = obs_pad[own], upd_pad[own], upd_c[own]
     codes = None
     if use_kernel and cfg.sweep_strides and any(
             int(k) > 1 for k in cfg.sweep_strides):
         # Observedness, fixedness and signs are static across the sweep:
         # the jump codes are built once, from the seeded state.
         fixed_pad = halo_exchange(_pad(fixed, n, v), nbr)
-        codes = stride_codes(d_pad, obs_pad, fixed_pad, nbr,
-                             cfg.sweep_strides)
+        codes = tuple(c[own] for c in stride_codes(
+            d_pad, obs_pad, fixed_pad, nbr, cfg.sweep_strides))
     while it < cfg.max_outer_sweeps and (it == 0 or _runtime.host_bool(
             rc.any())):
         if use_kernel:
@@ -500,30 +515,34 @@ def _sweep_on(esdf_layer, d, flags, nbr, region_rows, cfg, write_back_rows,
             # (a JAX gather clamps; a torch one would raise).
             act = rc | torch.where(nbr >= 0, rc[nbr.clamp(min=0)],
                                    False).any(1)
-            new = relax(d_pad, obs_pad, upd_pad, act, cfg.inner_sweeps,
-                        esdf_layer.voxel_size, cfg.max_distance_m,
-                        cfg.min_diff_m, strides=cfg.sweep_strides,
-                        codes=codes)
+            new = merged(relax(
+                d_pad[own], obs_own, upd_own, act[own], cfg.inner_sweeps,
+                esdf_layer.voxel_size, cfg.max_distance_m, cfg.min_diff_m,
+                strides=cfg.sweep_strides, codes=codes))
         else:
-            new = d_pad
-            di = d_pad[:, 1:-1, 1:-1, 1:-1]
+            new = d_pad[own]
+            di = new[:, 1:-1, 1:-1, 1:-1]
             if full_euclid:
                 # The parent halo is taken at the outer iteration's start,
                 # as the distance halo is.
-                p_new = halo_exchange(_pad(pp, n, v, _PARENT_ZERO), nbr)
+                p_new = halo_exchange(_pad(pp, n, v, _PARENT_ZERO), nbr)[own]
+                pp = pp[own]
             for _ in range(cfg.inner_sweeps):
-                src_pad = obs_pad & (new.abs() < cfg.max_distance_m)
+                src_pad = obs_own & (new.abs() < cfg.max_distance_m)
                 if full_euclid:
-                    di, pp = _relax_once(new, obs_pad, src_pad, di, upd_c,
-                                         esdf_layer.voxel_size, cfg,
-                                         parent_pad=p_new, parent=pp)
+                    di, pp = _relax_once(new, obs_own, src_pad, di,
+                                         upd_c_own, esdf_layer.voxel_size,
+                                         cfg, parent_pad=p_new, parent=pp)
                     p_new = p_new.clone()
                     p_new[:, 1:-1, 1:-1, 1:-1] = pp
                 else:
-                    di = _relax_once(new, obs_pad, src_pad, di, upd_c,
+                    di = _relax_once(new, obs_own, src_pad, di, upd_c_own,
                                      esdf_layer.voxel_size, cfg)
                 new = new.clone()
                 new[:, 1:-1, 1:-1, 1:-1] = di
+            new = merged(new)
+            if full_euclid:
+                pp = merged(pp)
         rc = ((new - d_pad).abs() > cfg.min_diff_m).reshape(n, -1).any(1)
         d_pad = halo_exchange(new, nbr)
         it += 1
@@ -548,9 +567,10 @@ def _sweep_on(esdf_layer, d, flags, nbr, region_rows, cfg, write_back_rows,
 
 
 def lower_sweep(esdf_layer, cfg: EsdfIntegratorConfig, region_rows=None,
-                relax_impl: str = "kernel"):
+                relax_impl: str = "kernel", shard=None):
     """Relax to convergence (or the outer cap) over ``region_rows`` (None
-    = all active rows). Returns (layer, iters, region_overflow,
+    = all active rows). ``shard``: the row split of the block-sharded
+    sweep (see ``_sweep_on``). Returns (layer, iters, region_overflow,
     unconverged)."""
     mb = esdf_layer.max_blocks
     dev = esdf_layer.device
@@ -564,7 +584,7 @@ def lower_sweep(esdf_layer, cfg: EsdfIntegratorConfig, region_rows=None,
         layer_out, iters, unconverged = _sweep_on(
             esdf_layer, esdf_layer.channels["esdf"],
             esdf_layer.channels["esdf_flags"], nbr, region_rows, cfg, None,
-            relax_impl, parent8=esdf_layer.channels["parent"])
+            relax_impl, parent8=esdf_layer.channels["parent"], shard=shard)
         return (layer_out, iters, torch.zeros((), dtype=torch.bool,
                                               device=dev), unconverged)
 
@@ -599,8 +619,20 @@ def lower_sweep(esdf_layer, cfg: EsdfIntegratorConfig, region_rows=None,
     region_c = region_rows[safe] & r_ok
     out_layer, iters, unconverged = _sweep_on(
         esdf_layer, d_c, f_c, nbr_c, region_c, cfg, (rows, r_ok), relax_impl,
-        parent8=esdf_layer.channels["parent"][safe])
+        parent8=esdf_layer.channels["parent"][safe], shard=shard)
     return out_layer, iters, region_overflow, unconverged
+
+
+def seeded_layer(tsdf_layer, cfg: EsdfIntegratorConfig):
+    """A new ESDF layer over every block of ``tsdf_layer``, seeded from it
+    and ready for ``lower_sweep`` (on the TSDF layer's device)."""
+    e = vlayer.make_layer("esdf", tsdf_layer.voxel_size, vps=tsdf_layer.vps,
+                          max_blocks=tsdf_layer.max_blocks,
+                          device=tsdf_layer.device)
+    rows = tsdf_layer.active_mask()
+    e, _ = _sync_blocks(e, tsdf_layer, rows)
+    e, _, _ = seed_from_tsdf(e, tsdf_layer, cfg, rows)
+    return e
 
 
 # ---------------------------------------------------------------------------
