@@ -337,19 +337,15 @@ def test_dataset_pipeline_matches_jax(tmp_path):
 
 def test_timing_registry():
     timing.reset()
-    with timing.timer("integrate/test", annotate=False):
+    with timing.timer("integrate/test"):
         time.sleep(0.01)
-    with timing.timer("mesh/test"):  # a torch.profiler span too
+    with timing.timer("mesh/test", label="mesh_test"):  # another label
         pass
-    t = timing.Timer("esdf/test")
-    time.sleep(0.005)
-    t.stop()
     d = timing.as_dict()
     assert d["integrate/test"]["calls"] == 1
     assert d["integrate/test"]["mean_ms"] >= 5
-    assert {"esdf/test", "mesh/test"} <= set(d)
+    assert "mesh/test" in d
     assert "integrate/test" in timing.print_timing()
-    timing.DummyTimer("x").stop()
     timing.enabled = False
     with timing.timer("off"):
         pass

@@ -17,6 +17,7 @@ import dataclasses
 import torch
 
 from .. import _runtime
+from ..utils import timing
 from . import grid
 
 MAX_INSERT_ROUNDS = 64
@@ -90,6 +91,8 @@ def lookup(table: HashTable, w0, w1, max_psl: int | None = None):
     host int (read once) and the lookup reads nothing."""
     if max_psl is None:
         max_psl = _runtime.host_int(table.max_psl)
+    timing.count("hash.lookup_lanes", w0.numel())
+    timing.count("hash.probes", w0.numel() * (max_psl + 1))
     mask = table.capacity - 1
     h = hash_words(w0, w1)
     out = torch.full(w0.shape, -1, dtype=torch.int32, device=w0.device)

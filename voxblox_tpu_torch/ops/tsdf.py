@@ -29,6 +29,7 @@ from ..core import grid
 from ..core import hash as vhash
 from ..core import layer as vlayer
 from ..core.config import TsdfIntegratorConfig
+from ..utils import timing
 from . import raycast
 
 
@@ -143,11 +144,17 @@ def accumulate_contributions(layer, voxels, mask, sdf, w, colors, cfg,
     """Add per-sample contributions into flat pool accumulators: (d_w,
     d_wd, d_wc, d_wcw, dirty), all indexed by flat pool offset; ``dirty``
     bool[max_blocks] marks blocks that took any update."""
+    flat, found = vlayer.global_voxel_to_flat(layer, voxels)
+    return _accumulate_flat(layer, flat, mask & found, sdf, w, colors, cfg,
+                            use_color)
+
+
+def _accumulate_flat(layer, flat, ok, sdf, w, colors, cfg, use_color: bool):
+    """``accumulate_contributions`` once the samples' flat pool offsets
+    are looked up (``ok``: in the walk's mask and in an allocated block)."""
     trunc = cfg.default_truncation_distance
     dev = layer.device
     n_flat = layer.max_blocks * layer.voxels_per_block
-    flat, found = vlayer.global_voxel_to_flat(layer, voxels)
-    ok = mask & found
     idx = _drop_to_dumps(flat, ok, n_flat)
     n_buf = n_flat + _DUMPS
     zeros = dict(dtype=torch.float32, device=dev)
@@ -202,15 +209,6 @@ def apply_contributions(layer, d_w, d_wd, d_wc, d_wcw, dirty, cfg):
     layer.block_flags.copy_(torch.where(
         dirty, vlayer.ACTIVE | vlayer.DIRTY_ALL, layer.block_flags))
     return layer
-
-
-def _scatter_and_apply(layer, voxels, mask, sdf, w, colors, cfg,
-                       use_color: bool):
-    """The reference's mutex-serialized voxel updates as one reduction and
-    one renormalize."""
-    return apply_contributions(
-        layer, *accumulate_contributions(layer, voxels, mask, sdf, w, colors,
-                                         cfg, use_color), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -271,10 +269,14 @@ def integrate_pointcloud(layer: vlayer.VoxelLayer, T_G_C, points_C, colors,
         cfg.max_ray_length_m, cfg.default_truncation_distance,
         layer.voxel_size, cfg.voxel_carving_enabled)
     endpoint_info = None
+    # Stage spans are siblings under the caller's span, which launches the
+    # first kernels (pose, validity, weights) and the last (the apply):
+    # the profiler puts each kernel under its innermost span only.
     if method == "merged":
-        (points_G, weights, colors, valid, clearing,
-         endpoint_info) = _bundle_rays(layer, points_G, weights, colors,
-                                       valid, clearing, use_color)
+        with timing.timer("integrate.bundle"):
+            (points_G, weights, colors, valid, clearing,
+             endpoint_info) = _bundle_rays(layer, points_G, weights, colors,
+                                           valid, clearing, use_color)
     if method == "fast":
         assert state is not None, "fast integrator needs FastIntegratorState"
         valid = valid & _fast_select_rays(layer, points_C, valid, cfg)
@@ -282,17 +284,37 @@ def integrate_pointcloud(layer: vlayer.VoxelLayer, T_G_C, points_C, colors,
         origin.expand(points_G.shape), points_G, clearing, layer.voxel_size,
         cfg.default_truncation_distance, cfg.max_ray_length_m,
         cfg.voxel_carving_enabled, cast_from_origin=method != "fast")
-    layer, overflowed = allocate_for_rays(layer, setup, valid, max_steps)
-    voxels, mask = raycast.cast_rays(setup, max_steps, valid)
+    with timing.timer("integrate.allocate"):
+        layer, overflowed = allocate_for_rays(layer, setup, valid, max_steps)
+    with timing.timer("integrate.walk"):
+        voxels, mask = raycast.cast_rays(setup, max_steps, valid)
+        timing.count("integrate.walk_samples", mask.numel())
+        if timing.recording():
+            # The mask holds for steps 0..num_steps of a valid lane, so the
+            # count is the sum of min(num_steps + 1, max_steps) over valid
+            # lanes: where(valid, min(num_steps, max_steps - 1), -1) summed
+            # on the device (three launches), plus the lanes.
+            lanes = valid.numel()
+            wide = lanes * max_steps >= 2 ** 31
+            last = torch.clamp(setup.num_steps, max=max_steps - 1)
+            timing.count("integrate.walk_samples_useful",
+                         torch.where(valid, last, -1).sum(
+                             dtype=torch.int64 if wide else torch.int32))
+            timing.count("integrate.walk_samples_useful", lanes)
     if method == "fast":
         mask, state = _fast_early_exit_and_stamp(voxels, mask, cfg, state)
-    sdf, w = _per_sample_contributions(voxels, mask, origin, points_G,
-                                       weights, layer.voxel_size, cfg)
-    if method == "merged" and cfg.enable_anti_grazing:
-        mask = mask & _anti_grazing_mask(voxels, endpoint_info, clearing)
-        w = torch.where(mask, w, 0.0)
-    layer = _scatter_and_apply(layer, voxels, mask, sdf, w, colors, cfg,
+    with timing.timer("integrate.weigh"):
+        sdf, w = _per_sample_contributions(voxels, mask, origin, points_G,
+                                           weights, layer.voxel_size, cfg)
+        if method == "merged" and cfg.enable_anti_grazing:
+            mask = mask & _anti_grazing_mask(voxels, endpoint_info, clearing)
+            w = torch.where(mask, w, 0.0)
+    with timing.timer("integrate.lookup"):
+        flat, found = vlayer.global_voxel_to_flat(layer, voxels)
+    with timing.timer("integrate.scatter"):
+        acc = _accumulate_flat(layer, flat, mask & found, sdf, w, colors, cfg,
                                use_color)
+    layer = apply_contributions(layer, *acc, cfg)
     return layer, state, overflowed
 
 

@@ -22,8 +22,9 @@ file), ``publish_mesh_msg`` the incremental mesh message.
 integrated (two-dispatch path only, as in the JAX package); the ESDF
 server's ``clear_sphere_for_planning`` adds the robot-position prior
 after each scan. ``save_map`` / ``load_map`` take .vxblx files (the ESDF
-appended after the TSDF) or .npz checkpoints. Per-stage host timers
-(``utils/timing``, the JAX package's tags) feed ``stats()``.
+appended after the TSDF) or .npz checkpoints. Per-stage spans
+(``utils/timing``, the JAX package's tags) feed ``stats()``: host time
+always, device time, syncs and counters while recording.
 
 - ``IntensityServer``: projects intensity images or bearing sets onto the
   TSDF surface (intensity_server.{h,cc}).
@@ -39,7 +40,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import _runtime
 from ..core import layer as vlayer
@@ -184,8 +184,9 @@ class TsdfServer:
                 res = icp_ops.run_icp(self.layer, points_C, T_G_C,
                                       self.icp_config)
                 T_G_C = self.icp_corrected = (res.R, res.t)
-        with timing.timer(f"integrate/{self.method}", annotate=False), \
-                record_function(f"integrate_{self.method}"):
+        with timing.timer(f"integrate/{self.method}",
+                          label=f"integrate_{self.method}",
+                          scan=self.num_scans):
             if self.method == "projective":
                 self.layer, overflow, budget_ovf = self._integrate(
                     T_G_C, points_C, colors)
@@ -236,6 +237,7 @@ class TsdfServer:
     def _replay_scan(self, T_G_C, points_C, colors, fused: bool):
         """Re-dispatch one budget-overflowed scan until it applies, first
         at the current budgets, then growing a rung per fresh overflow."""
+        timing.count("server.replays", 1)
         first = True
         while True:
             if not first and not self._grow_projective_budgets():
@@ -269,11 +271,12 @@ class TsdfServer:
     def check_overflow(self):
         """Resolve deferred overflow flags: budget overflows replay their
         scans; pool overflow raises."""
-        self._drain_pending_scans()
-        if self._overflow_acc is None:
-            return
-        (ovf,) = _runtime.host_bools([self._overflow_acc])
-        self._overflow_acc = None
+        with timing.timer("server.check_overflow", scan=self.num_scans):
+            self._drain_pending_scans()
+            if self._overflow_acc is None:
+                return
+            (ovf,) = _runtime.host_bools([self._overflow_acc])
+            self._overflow_acc = None
         if ovf:
             raise MemoryError(
                 "block pool overflow; increase MapConfig.max_blocks")
@@ -283,8 +286,7 @@ class TsdfServer:
         """Incremental mesh update: march up to ``update_bucket`` mesh-dirty
         rows into the device mesh pool (no host read; export with
         ``generate_mesh`` / ``export_mesh_layer``)."""
-        with timing.timer("mesh/update", annotate=False), \
-                record_function("mesh_update"):
+        with timing.timer("mesh/update", label="mesh_update"):
             self.layer, self.mesh_pool, more = mesh_ops.update_mesh_pool(
                 self.layer, self.mesh_pool, self.mesh_config,
                 bucket=self.mesh_config.update_bucket, only_updated=True)
@@ -385,7 +387,8 @@ class TsdfServer:
         return {"num_scans": self.num_scans,
                 "num_blocks": _runtime.host_int(self.layer.num_blocks),
                 "memory_bytes": self.layer.memory_bytes(),
-                "timing": timing.as_dict()}
+                "timing": timing.as_dict(),
+                "counters": timing.summary()["counters"]}
 
 
 class EsdfServer(TsdfServer):
@@ -445,7 +448,7 @@ class EsdfServer(TsdfServer):
         if not organized:
             points_C, colors = self._pad(points_C, colors)
         T_G_C = self._pose(T_G_C)
-        with timing.timer("fused_scan", annotate=False):
+        with timing.timer("fused_scan", scan=self.num_scans):
             iters = self._fused_step(T_G_C, points_C, colors)
         self.num_scans += 1
         if self.num_scans % self.overflow_check_interval == 0:
@@ -460,8 +463,7 @@ class EsdfServer(TsdfServer):
         run_cfg = esdf_ops._bucketed_cfg(self.esdf_cfg, self.esdf_layer,
                                          self.layer)
         b = self.projective_budgets
-        # Named spans for torch.profiler (host and device time per stage).
-        with record_function("projective_integrate"):
+        with timing.timer("projective_integrate"):
             if (points_C.dim() == 3
                     and self.projective_intrinsics is not None):
                 self.layer, t_ovf, t_budget = (
@@ -472,7 +474,7 @@ class EsdfServer(TsdfServer):
             else:
                 self.layer, t_ovf, t_budget = self._integrate(
                     T_G_C, points_C, colors)
-        with record_function("esdf_incremental"):
+        with timing.timer("esdf_incremental"):
             (self.esdf_layer, self.layer, e_ovf, region_ovf,
              iters) = esdf_ops._incremental(self.esdf_layer, self.layer,
                                             run_cfg, self.relax_impl)
