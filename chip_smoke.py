@@ -17,7 +17,8 @@ sharing the card over gloo).
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1 device   nvidia-smi name/power limit, refuse without a GPU
-  2 build    nvcc the kernels from voxblox_tpu_torch/csrc/
+  2 build    nvcc the kernels from voxblox_tpu_torch/csrc/ (K1 and K2,
+             the walk kernel)
   3 main     warm a 32-pose orbit, then time 12 online steps with the
              kernel counters zeroed just before and read just after
   4 kernel   K1 against its plain version at the shape and constants of
@@ -55,8 +56,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
              a street, 0.2 m voxels, 50 m rays, K=16 batches; against 16
              sequential single-scan calls and the scatter image builder
  13 raycast  TsdfServer(method=fast/merged/simple) on the orbit's flat
-             640x480 clouds against the analytic scene; at 160x120 the
-             card's maps against the port's on the CPU
+             640x480 clouds against the analytic scene, the walk kernel's
+             launches counted over the timed scans (one a scan for simple
+             and merged, none for fast); the kernel held to the plain
+             chain on the rays of 3 more scans of each, and timed against
+             it and its byte bound there; at 160x120 the card's maps
+             against the port's on the CPU
  14 io       (after 9) EsdfServer.save_map of the phase-3 maps to .vxblx
              (TSDF + ESDF appended) and .npz, loaded back into fresh
              servers on the card: the same blocks, floats bit for bit,
@@ -118,6 +123,7 @@ Prints a {"kernels": [...]} line, the nvidia-smi line, and last
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import shutil
@@ -144,6 +150,8 @@ from voxblox_tpu_torch.ops import mesh as mesh_ops  # noqa: E402
 from voxblox_tpu_torch.ops import esdf as esdf_ops  # noqa: E402
 from voxblox_tpu_torch.ops import esdf_relax  # noqa: E402
 from voxblox_tpu_torch.ops import projective as projective_ops  # noqa: E402
+from voxblox_tpu_torch.ops import tsdf as tsdf_ops  # noqa: E402
+from voxblox_tpu_torch.ops import tsdf_walk  # noqa: E402
 from voxblox_tpu_torch.models import maps  # noqa: E402
 from voxblox_tpu_torch.server.mapper import (  # noqa: E402
     EsdfServer, TsdfServer)
@@ -1247,6 +1255,109 @@ def check_analytic(acc, trunc, what):
     assert acc["rmse"] < 2 * VOXEL and acc["max_err"] < 4 * trunc + 1e-6, what
 
 
+WALK_SCANS = 3  # scans whose rays the walk kernel is held and timed on
+
+
+def walk_vs_chain(layer, rays, max_steps, cfg):
+    """The walk kernel (through its wrapper) and the plain chain
+    (``_chain_samples`` + ``_accumulate_flat``) on the same rays and table.
+    Each accumulator cell within 2 (n - 1) 2^-24 sum|x| + 2^-21 sum|x| of
+    the chain's over its n addends x (tests/test_torch_tsdf_walk.py's bound
+    on the card: the atomics add in any order, and the chain's dropoff
+    ramp multiplies by the reciprocal); dirty rows equal. Returns the
+    kernel's accumulators, the largest |kernel - chain| and the largest
+    error over its bound."""
+    got = tsdf_ops._walk_kernel(layer, rays, max_steps, cfg)
+    _, sdf, w, flat, ok, _ = tsdf_ops._chain_samples(layer, rays, max_steps,
+                                                     cfg)
+    use_color = rays.colors is not None
+    want = tsdf_ops._accumulate_flat(layer, flat, ok, sdf, w, rays.colors,
+                                     cfg, use_color)
+    trunc = cfg.default_truncation_distance
+    cw = torch.where(sdf.abs() < trunc, w, 0.0)
+    addends = [w, w * torch.clamp(sdf, -trunc, trunc)]
+    if use_color:
+        addends += [cw[..., None] * rays.colors, cw]
+    f = flat[ok]
+    n_flat = got[0].shape[0]
+    n = torch.bincount(f, minlength=n_flat).double()
+    max_err, max_ratio = 0.0, 0.0
+    for i, x in enumerate(addends):
+        x = x[ok].reshape(f.shape[0], -1).abs().double()
+        mag = torch.zeros((n_flat, x.shape[1]), dtype=torch.float64,
+                          device=x.device).index_add_(0, f, x)
+        bound = ((2.0 * (n - 1).clamp(min=0) * 2.0 ** -24
+                  + 2.0 ** -21)[:, None] * mag)
+        err = (got[i].double() - want[i].double()).reshape(bound.shape).abs()
+        max_err = max(max_err, float(err.max()))
+        max_ratio = max(max_ratio, float((err / bound.clamp(
+            min=1e-30)).max()))
+        assert bool((err <= bound).all()), (i, float((err - bound).max()))
+    assert torch.equal(got[4], want[4]), "dirty rows differ"
+    return got, max_err, max_ratio
+
+
+def walk_phase(srv, scans):
+    """The walk kernel on the rays ``srv`` (simple or merged) hands it for
+    ``scans``: held to the plain chain (``walk_vs_chain``), its device time
+    (the bare launch on prepared arguments, CUDA events) against the
+    chain's (event to event, its launch gaps and probe-bound read
+    included), and its bound: ``tsdf_walk.needed_bytes`` over the HBM
+    rate."""
+    caught = []
+    kernel = tsdf_ops._walk_kernel
+
+    def spy(layer, rays, max_steps, cfg):
+        caught.append((layer, rays, max_steps, cfg))
+        return kernel(layer, rays, max_steps, cfg)
+
+    tsdf_ops._walk_kernel = spy
+    try:
+        for s in scans:
+            srv.insert_pointcloud(s[:2], *s[2:])
+    finally:
+        tsdf_ops._walk_kernel = kernel
+    assert len(caught) == len(scans), len(caught)
+    errs, ratios, needed, samples = [], [], [], []
+    for layer, rays, max_steps, cfg in caught:
+        counts = torch.zeros(2, dtype=torch.int64, device=layer.device)
+        acc = tsdf_walk.walk_and_accumulate(
+            layer, max_steps, cfg, **tsdf_ops._kernel_inputs(rays, counts))
+        probes = int(counts[0])
+        needed.append(tsdf_walk.needed_bytes(
+            acc, rays.valid, rays.colors is not None,
+            min(probes, layer.table.capacity)))
+        del acc
+        _, err, ratio = walk_vs_chain(layer, rays, max_steps, cfg)
+        errs.append(err)
+        ratios.append(ratio)
+        samples.append(int(tsdf_walk.walk_lengths(
+            rays.setup.num_steps, rays.valid, max_steps).sum()))
+    lib = tsdf_walk._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    prepared = [tsdf_walk.make_params(layer, max_steps, cfg,
+                                      **tsdf_ops._kernel_inputs(rays))
+                for layer, rays, max_steps, cfg in caught]
+    ms, _ = _cuda_ms(lambda p: lib.tsdf_walk(ctypes.byref(p[0]), stream),
+                     prepared * 3)
+    del prepared
+
+    def chain(c):
+        layer, rays, max_steps, cfg = c
+        _, sdf, w, flat, ok, _ = tsdf_ops._chain_samples(layer, rays,
+                                                         max_steps, cfg)
+        tsdf_ops._accumulate_flat(layer, flat, ok, sdf, w, rays.colors, cfg,
+                                  rays.colors is not None)
+
+    plain_ms, _ = _cuda_ms(chain, caught)
+    bound_ms = 1e3 * statistics.median(needed) / PEAK_BYTES
+    return dict(scans=len(caught), max_abs_err=max(errs),
+                max_err_over_bound=max(ratios), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes",
+                needed_bytes=needed, useful_samples=samples,
+                share_of_bound=bound_ms / ms)
+
+
 def raycast_phase(scans, dev, profile=False):
     """TsdfServer(method=...) on the orbit's flat 640x480 clouds (307,200
     points, 5 m rays): ms/scan after warm-up scans, the map against the
@@ -1274,11 +1385,16 @@ def raycast_phase(scans, dev, profile=False):
         for s in flat[:n_warm]:
             srv.insert_pointcloud(s[:2], *s[2:])
         torch.cuda.synchronize()
+        tsdf_walk.LAUNCHES = 0
         t0 = time.perf_counter()
         for s in flat[n_warm:n_warm + n_timed]:
             srv.insert_pointcloud(s[:2], *s[2:])
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / n_timed * 1e3
+        walk_launches = tsdf_walk.LAUNCHES
+        # One launch a scan for simple and merged; fast keeps the chain.
+        assert walk_launches == (0 if method == "fast" else n_timed), (
+            method, walk_launches)
         srv.check_overflow()
         if profile and method == "fast":
             nxt = n_warm + n_timed
@@ -1291,11 +1407,18 @@ def raycast_phase(scans, dev, profile=False):
         layer = srv.layer
         acc = analytic_errors(layer, objs, trunc)
         res[method] = dict(ms_per_scan=ms, scans_timed=n_timed,
+                           walk_launches=walk_launches,
                            blocks=_runtime.host_int(layer.num_blocks), **acc)
         log(f"raycast {method}: {ms:.1f} ms/scan, rmse {acc['rmse']:.4f} m, "
             f"max {acc['max_err']:.3f} m over {acc['evaluated_voxels']} "
             "voxels")
         check_analytic(acc, trunc, (method, res[method]))
+        if method != "fast":
+            nxt = n_warm + n_timed
+            res[method]["walk_kernel"] = walk_phase(
+                srv, flat[nxt:nxt + WALK_SCANS])
+            log(f"raycast {method} walk kernel: "
+                + json.dumps(res[method]["walk_kernel"]))
         del srv
     res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
 
@@ -2472,7 +2595,6 @@ def shard_references(dev, scans, intr, online_tsdf, batch_map, stress):
     and the seconds of each call (timed as ``shard_calls`` times its
     sharded twin, without the collectives)."""
     from voxblox_tpu_torch.ops import render
-    from voxblox_tpu_torch.ops import tsdf as tsdf_ops
 
     seconds = {}
 
@@ -2763,12 +2885,16 @@ def main():
         f"cuda {torch.version.cuda}")
     out["device"] = dict(name=name, nvidia_smi=smi)
 
-    # 2. Build (one source file holds both kernels: one nvcc run).
+    # 2. Build (one source file holds K1 and K2: one nvcc run; the walk
+    # kernel another).
     t0 = time.perf_counter()
     esdf_relax.build()
     esdf_relax._lib()
+    tsdf_walk._lib()
     out["build_s"] = time.perf_counter() - t0
     out["build_ptxas"] = esdf_relax.BUILD_INFO.get("ptxas", "(cached)")
+    out["build_ptxas_tsdf_walk"] = tsdf_walk.BUILD_INFO.get("ptxas",
+                                                            "(cached)")
     ctas = dict(k1=esdf_relax.ctas_per_sm(False),
                 k2=esdf_relax.ctas_per_sm(True))
     out["ctas_per_sm"] = ctas
@@ -2975,6 +3101,18 @@ def main():
              other_shapes=[{k: o[k] for k in shape_keys}
                            for o in out["shard"]["kernel_shapes"]["k2"]]),
     ]}
+    walk = out["raycast"]["merged"]["walk_kernel"]
+    line["kernels"].append(dict(
+        name="tsdf_walk_kernel", route="cuda",
+        source="voxblox_tpu_torch/csrc/tsdf_walk.cu", replaces=None,
+        launches=out["raycast"]["merged"]["walk_launches"],
+        **{k: walk[k] for k in keys}, library_ms=None,
+        launches_by_path=dict(
+            raycast_merged=out["raycast"]["merged"]["walk_launches"],
+            raycast_simple=out["raycast"]["simple"]["walk_launches"],
+            raycast_fast=out["raycast"]["fast"]["walk_launches"]),
+        other_shapes=[dict(path="raycast simple", **{
+            k: out["raycast"]["simple"]["walk_kernel"][k] for k in keys})]))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

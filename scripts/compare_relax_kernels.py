@@ -60,11 +60,17 @@ ORDER = ("parent", "new", "new", "parent", "parent", "new", "new", "parent")
 
 
 def load_parent(path):
-    src = Path(path) / "voxblox_tpu_torch" / "ops" / "esdf_relax.py"
-    spec = importlib.util.spec_from_file_location("parent_esdf_relax", src)
+    """The other checkout's ``ops/esdf_relax``, imported inside its own
+    package (as ``parent_voxblox_tpu_torch``), so that its relative
+    imports resolve there."""
+    pkg = Path(path) / "voxblox_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "parent_voxblox_tpu_torch", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
-    return mod
+    return importlib.import_module("parent_voxblox_tpu_torch.ops.esdf_relax")
 
 
 def alternate(impls, window, rounds=1):

@@ -15,7 +15,7 @@ from torch.profiler import ProfilerActivity, profile
 from voxblox_tpu_torch import _runtime
 from voxblox_tpu_torch.core import hash as vhash
 from voxblox_tpu_torch.core.config import MapConfig, TsdfIntegratorConfig
-from voxblox_tpu_torch.ops import raycast
+from voxblox_tpu_torch.ops import raycast, tsdf_walk
 from voxblox_tpu_torch.server.mapper import TsdfServer
 from voxblox_tpu_torch.utils import timing
 
@@ -171,3 +171,25 @@ def test_device_counts_fold_and_sum(server):
     timing.count("y", 2)
     c = timing.stop_recording()["counters"]
     assert c == {"x": timing._FOLD + 8, "y": 2}
+
+
+@pytest.mark.parametrize("lanes,steps,max_steps,slots,useful", [
+    # One valid lane whose walk visits 10 voxels (num_steps 9) among 32.
+    (32, {5: 9}, 100, 320, 10),
+    # Lanes 0, 1 and 33 of 40: warps of 24 and 9 samples.
+    (40, {0: 23, 1: 13, 33: 8}, 100, 32 * 24 + 32 * 9, 47),
+    # A walk cut at max_steps; a zero-length ray still visits one voxel.
+    (64, {3: 500, 40: 0}, 120, 32 * 120 + 32 * 1, 121),
+    (70, {}, 50, 0, 0),
+])
+def test_warp_slot_count(lanes, steps, max_steps, slots, useful):
+    """``integrate.walk_samples`` on the kernel's path counts each warp of
+    32 consecutive lanes as running as long as its longest walk."""
+    num_steps = torch.randint(0, 300, (lanes,), dtype=torch.int32)
+    valid = torch.zeros(lanes, dtype=torch.bool)
+    for lane, n in steps.items():
+        num_steps[lane] = n
+        valid[lane] = True
+    lengths = tsdf_walk.walk_lengths(num_steps, valid, max_steps)
+    assert int(tsdf_walk.warp_slots(lengths)) == slots
+    assert int(lengths.sum()) == useful

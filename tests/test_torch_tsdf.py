@@ -15,6 +15,11 @@ away and its DDA path one voxel over. Tolerances, per map:
   more than 1e-5 in TSDF (atol) or weight (atol and rtol); the colours of
   all others within 1e-3.
 The flag cases (one or two rays) hold TSDF and weight at 1e-5 everywhere.
+
+The same holds where simple and merged scatter through the walk kernel
+(csrc/tsdf_walk.cu): on the CPU its source compiled with g++ in the place
+of the chain's scatter, and on a card (tests marked ``cuda``) the kernel
+itself, with the port's layer there.
 """
 
 import dataclasses
@@ -32,9 +37,12 @@ from voxblox_tpu.ops import tsdf as jt
 from voxblox_tpu_torch.core import layer as tlayer
 from voxblox_tpu_torch.core.config import TsdfIntegratorConfig as TCfg
 from voxblox_tpu_torch.ops import tsdf as tt
+from voxblox_tpu_torch.ops import tsdf_walk
 from voxblox_tpu_torch.sim import world as tsw
 
 import torch_parity
+from test_torch_tsdf_walk import _emulate, emulation  # noqa: F401 (fixture)
+from torch_parity import cuda_device  # noqa: F401  (fixture)
 
 VOXEL = 0.1
 CFG = dict(default_truncation_distance=0.4, max_ray_length_m=10.0)
@@ -80,33 +88,83 @@ def _close_but_for_a_share(ref, got, share):
     return int(off.sum()), observed
 
 
-@pytest.mark.parametrize("method,anti_grazing", [
-    ("simple", False), ("merged", False), ("merged", True), ("fast", False)])
-def test_integrators_match_jax(method, anti_grazing):
+def _integrators_match_jax(method, anti_grazing, device="cpu"):
+    """Three scans through both packages' integrators, the port's layer on
+    ``device``; the maps held to each other as the module docstring says.
+    Returns the number of scans."""
     cfg = dict(CFG, enable_anti_grazing=anti_grazing)
     jl = jlayer.make_layer("tsdf", VOXEL, vps=8, max_blocks=4096)
     tl = tlayer.make_layer("tsdf", VOXEL, vps=8, max_blocks=4096,
-                           device="cpu")
+                           device=device)
     js = jt.make_fast_state() if method == "fast" else None
-    ts = tt.make_fast_state(device="cpu") if method == "fast" else None
-    for R, t, pts, col in _scans():
+    ts = tt.make_fast_state(device=device) if method == "fast" else None
+    scans = _scans()
+    for R, t, pts, col in scans:
         jl, js, jo = jt.integrate_pointcloud(
             jl, (jnp.asarray(R), jnp.asarray(t)), jnp.asarray(pts),
             jnp.asarray(col), JCfg(**cfg), method=method, state=js)
         tl, ts, to = tt.integrate_pointcloud(
-            tl, (torch.as_tensor(R), torch.as_tensor(t)),
-            torch.as_tensor(pts), torch.as_tensor(col), TCfg(**cfg),
+            tl, tuple(torch.as_tensor(x, device=device) for x in (R, t)),
+            torch.as_tensor(pts, device=device),
+            torch.as_tensor(col, device=device), TCfg(**cfg),
             method=method, state=ts)
         assert bool(jo) == bool(to) is False
     ref = torch_parity.jax_layer_to_numpy(jl)
     got = tlayer.layer_to_numpy(tl)
     off, observed = _close_but_for_a_share(
         ref, got, 0.01 if method == "fast" else 0.05)
-    print(f"{method} anti_grazing={anti_grazing}: {off} of {observed} "
-          f"observed voxels off by more than 1e-5")
+    print(f"{method} anti_grazing={anti_grazing} on {device}: {off} of "
+          f"{observed} observed voxels off by more than 1e-5")
     if method == "fast":
         _stamps_close(js, ts)
         assert int(ts.frame) == int(js.frame) == 4
+    return len(scans)
+
+
+@pytest.mark.parametrize("method,anti_grazing", [
+    ("simple", False), ("merged", False), ("merged", True), ("fast", False)])
+def test_integrators_match_jax(method, anti_grazing):
+    _integrators_match_jax(method, anti_grazing)
+
+
+_KERNEL_CASES = [("simple", False), ("merged", False), ("merged", True)]
+
+
+@pytest.mark.parametrize("method,anti_grazing", _KERNEL_CASES)
+def test_emulated_kernel_integrators_match_jax(emulation, monkeypatch,
+                                               method, anti_grazing):
+    """The walk kernel's source (csrc/tsdf_walk.cu, compiled for the CPU
+    by tests/test_torch_tsdf_walk.py's fixture) in the place of the chain's
+    scatter: every scan's accumulators are what the kernel's per-ray
+    function adds on the chain's rays and table, and the map is held to
+    the JAX integrators at the CPU port's tolerances."""
+    chain = tt._chain_samples
+    seen = {}
+    scattered = []
+
+    def spy(layer, rays, max_steps, cfg, state=None):
+        seen.update(layer=layer, rays=rays, max_steps=max_steps, cfg=cfg)
+        return chain(layer, rays, max_steps, cfg, state)
+
+    def kernel_sums(*args):
+        scattered.append(1)
+        return _emulate(emulation, seen)[2]
+
+    monkeypatch.setattr(tt, "_chain_samples", spy)
+    monkeypatch.setattr(tt, "_accumulate_flat", kernel_sums)
+    assert _integrators_match_jax(method, anti_grazing) == len(scattered)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,anti_grazing", _KERNEL_CASES)
+def test_cuda_kernel_integrators_match_jax(cuda_device, method,
+                                           anti_grazing):
+    """The port's layer on the card, where simple and merged walk, weigh,
+    look up and scatter in the walk kernel (one launch a scan), held to
+    the JAX integrators at the CPU port's tolerances."""
+    before = tsdf_walk.LAUNCHES
+    scans = _integrators_match_jax(method, anti_grazing, cuda_device)
+    assert tsdf_walk.LAUNCHES - before == scans
 
 
 def _stamps_close(js, ts):
@@ -118,22 +176,25 @@ def _stamps_close(js, ts):
                                                      (r > 0).sum())
 
 
-def _one_ray(cfg, points, method="simple"):
+def _one_ray(cfg, points, method="simple", device="cpu"):
     """Both packages integrate ``points`` (sensor = world frame) into an
-    8-voxel-block layer; returns (jax layer, port layer)."""
+    8-voxel-block layer, the port's on ``device``; returns the port's
+    layer."""
     pts = np.asarray(points, np.float32)
     cols = np.zeros_like(pts)
     jl = jlayer.make_layer("tsdf", VOXEL, vps=8, max_blocks=256)
     tl = tlayer.make_layer("tsdf", VOXEL, vps=8, max_blocks=256,
-                           device="cpu")
+                           device=device)
     js = jt.make_fast_state() if method == "fast" else None
-    ts = tt.make_fast_state(device="cpu") if method == "fast" else None
+    ts = tt.make_fast_state(device=device) if method == "fast" else None
     jl, _, _ = jt.integrate_pointcloud(
         jl, (jnp.eye(3), jnp.zeros(3)), jnp.asarray(pts), jnp.asarray(cols),
         JCfg(**cfg), method=method, state=js)
     tl, _, _ = tt.integrate_pointcloud(
-        tl, (torch.eye(3), torch.zeros(3)), torch.as_tensor(pts),
-        torch.as_tensor(cols), TCfg(**cfg), method=method, state=ts)
+        tl, (torch.eye(3, device=device), torch.zeros(3, device=device)),
+        torch.as_tensor(pts, device=device),
+        torch.as_tensor(cols, device=device), TCfg(**cfg), method=method,
+        state=ts)
     torch_parity.assert_layers_equal(
         torch_parity.jax_layer_to_numpy(jl), tlayer.layer_to_numpy(tl),
         atol=1e-5, rtol=1e-5, channels=["tsdf", "weight"])
@@ -142,7 +203,7 @@ def _one_ray(cfg, points, method="simple"):
 
 def _voxel(layer, xyz, channel="weight"):
     gvi = torch.floor(torch.tensor([xyz], dtype=torch.float32) / VOXEL
-                      + jgrid.EPS).to(torch.int32)
+                      + jgrid.EPS).to(torch.int32).to(layer.device)
     v, found = tlayer.get_voxels(layer, channel, gvi)
     return float(v[0]), bool(found[0])
 
@@ -197,6 +258,19 @@ def test_integrator_flags_match_jax(name):
     tests/test_integrator_flags.py asserts holds on the port."""
     cfg, points, method, check = _FLAGS[name]
     assert check(_one_ray(cfg, points, method))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(
+    n for n, case in _FLAGS.items() if case[2] != "fast"))
+def test_cuda_kernel_integrator_flags_match_jax(cuda_device, name):
+    """The flag cases of simple and merged with the port's layer on the
+    card, through the walk kernel (one launch): the same layer as the JAX
+    package's at 1e-5, and the same behaviour."""
+    cfg, points, method, check = _FLAGS[name]
+    before = tsdf_walk.LAUNCHES
+    assert check(_one_ray(cfg, points, method, cuda_device))
+    assert tsdf_walk.LAUNCHES == before + 1
 
 
 @pytest.mark.parametrize("method,prune", [("simple", 0.0), ("merged", 0.0),

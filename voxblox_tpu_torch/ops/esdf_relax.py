@@ -25,15 +25,12 @@ wrapper makes no copy of its own.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from . import _nvcc
 
 P = 18  # padded block side
 BIG = 1e9  # validity sentinel (exact in f32), as in the TPU kernel
@@ -42,9 +39,6 @@ MAX_SCHEDULE = 16  # entries the kernel's schedule argument holds
 LAUNCHES = 0  # kernel launches through ``relax`` (K1 and K2)
 STRIDED_LAUNCHES = 0  # of these, launches of K2 (a stride > 1)
 
-_PKG = Path(__file__).resolve().parents[1]
-_SRC = _PKG / "csrc" / "esdf_relax.cu"
-_BUILD_DIR = _PKG / "_build"
 _LIB = None
 BUILD_INFO: dict = {}
 
@@ -174,36 +168,11 @@ def relax_plain(d, obs, upd, active, inner_sweeps: int, voxel_size: float,
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
-
-
 def build() -> Path:
     """Compile csrc/esdf_relax.cu for sm_90a into _build/ (keyed by the
     source hash; reused when present). Records the command, seconds and
     ptxas report in ``BUILD_INFO``."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src).hexdigest()[:12]
-    out = _BUILD_DIR / f"libesdf_relax_{tag}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SRC)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    BUILD_INFO.update(cmd=" ".join(cmd), seconds=time.perf_counter() - t0,
-                      ptxas=res.stderr.strip())
-    return out
+    return _nvcc.build("esdf_relax", info=BUILD_INFO)
 
 
 def _lib():

@@ -86,28 +86,42 @@ def _l1_steps(start_scaled, end_scaled):
     return (ei - si).abs().sum(-1).to(torch.int32)
 
 
-def cast_rays(setup: RaySetup, max_steps: int, valid=None):
-    """Run the DDA for all rays in lockstep: (voxels int32[max_steps, R,
-    3], mask bool[max_steps, R]); the mask holds while step <= num_steps
-    (the reference emits num_steps + 1 voxels). Rays longer than
-    ``max_steps`` lose their farthest voxels."""
+class DdaStart(NamedTuple):
+    """A walk's state before its first step."""
+    voxel: torch.Tensor  # int32[R,3] start voxel
+    step: torch.Tensor  # int32[R,3] step signs
+    t_next: torch.Tensor  # f32[R,3] t to the next boundary per axis
+    t_step: torch.Tensor  # f32[R,3] t between boundaries per axis
+
+
+def dda_start(setup: RaySetup) -> DdaStart:
+    """Per-ray set-up of the DDA; axes with no extent get a huge t, so
+    they never win."""
     start = setup.start_scaled
-    dev = start.device
     curr = grid.scaled_point_to_grid_index(start)
     ray_scaled = setup.end_scaled - start
     step_signs = torch.sign(ray_scaled).to(torch.int32)
     corrected_step = torch.clamp(step_signs, min=0).to(torch.float32)
     dist_to_boundary = corrected_step - (start - curr.to(torch.float32))
-    # Axes with no extent get a huge t, so they never win.
     safe = ray_scaled.abs() > 0.0
     big = 2.0 ** 30
-    one = torch.ones((), dtype=torch.float32, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=start.device)
     den = torch.where(safe, ray_scaled, one)
     t_next = torch.where(safe, dist_to_boundary / den, big)
     t_step = torch.where(safe, step_signs.to(torch.float32) / den, big)
+    return DdaStart(curr, step_signs, t_next, t_step)
+
+
+def cast_rays(setup: RaySetup, max_steps: int, valid=None):
+    """Run the DDA for all rays in lockstep: (voxels int32[max_steps, R,
+    3], mask bool[max_steps, R]); the mask holds while step <= num_steps
+    (the reference emits num_steps + 1 voxels). Rays longer than
+    ``max_steps`` lose their farthest voxels."""
+    curr, step_signs, t_next, t_step = dda_start(setup)
+    dev = curr.device
     if valid is None:
-        valid = torch.ones(start.shape[:-1], dtype=torch.bool, device=dev)
-    n = start.shape[0]
+        valid = torch.ones(curr.shape[:-1], dtype=torch.bool, device=dev)
+    n = curr.shape[0]
     voxels = torch.empty((max_steps, n, 3), dtype=torch.int32, device=dev)
     mask = torch.empty((max_steps, n), dtype=torch.bool, device=dev)
     for i in range(max_steps):

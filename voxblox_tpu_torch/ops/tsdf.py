@@ -15,6 +15,12 @@ sample adds (w, w*sdf, w*rgb) into pool-wide accumulators and one
 renormalize per scan folds them into the running averages. On the CPU
 the sums run in lane order, as the JAX CPU backend's scatter runs them;
 on the GPU their order is the atomics' order.
+
+On a CUDA device ``simple`` and ``merged`` walk, weigh, look up and
+scatter in one launch of a hand-written kernel (``ops/tsdf_walk``); the
+chain of [max_steps, R] sample tensors here is its plain version and runs
+on the CPU, and for ``fast``, whose early exit sits between walk and
+weigh.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from ..core import hash as vhash
 from ..core import layer as vlayer
 from ..core.config import TsdfIntegratorConfig
 from ..utils import timing
-from . import raycast
+from . import raycast, tsdf_walk
 
 
 class FastIntegratorState(NamedTuple):
@@ -286,36 +292,113 @@ def integrate_pointcloud(layer: vlayer.VoxelLayer, T_G_C, points_C, colors,
         cfg.voxel_carving_enabled, cast_from_origin=method != "fast")
     with timing.timer("integrate.allocate"):
         layer, overflowed = allocate_for_rays(layer, setup, valid, max_steps)
+    grazing = None
+    if method == "merged" and cfg.enable_anti_grazing:
+        grazing = (endpoint_info[0], endpoint_info[1], clearing)
+    rays = _Rays(setup, valid, origin, points_G, weights,
+                 colors if use_color else None, grazing)
+    if dev.type == "cuda" and method != "fast":
+        with timing.timer("integrate.walk"):
+            acc = _walk_kernel(layer, rays, max_steps, cfg)
+    else:
+        _, sdf, w, flat, ok, fast_state = _chain_samples(
+            layer, rays, max_steps, cfg, state if method == "fast" else None)
+        if method == "fast":
+            state = fast_state
+        with timing.timer("integrate.scatter"):
+            acc = _accumulate_flat(layer, flat, ok, sdf, w, colors, cfg,
+                                   use_color)
+    layer = apply_contributions(layer, *acc, cfg)
+    return layer, state, overflowed
+
+
+# ---------------------------------------------------------------------------
+# Walk, weigh, lookup and scatter: the chain (CPU; the fast integrator) and
+# the kernel (simple and merged on a CUDA device, ops/tsdf_walk)
+# ---------------------------------------------------------------------------
+
+
+class _Rays(NamedTuple):
+    """One scan's rays as the walk takes them (after bundling)."""
+    setup: raycast.RaySetup
+    valid: torch.Tensor  # bool[R]
+    origin: torch.Tensor  # f32[3]
+    points: torch.Tensor  # f32[R,3] world frame
+    weights: torch.Tensor  # f32[R]
+    colors: Optional[torch.Tensor]  # f32[R,3]; None without colour
+    # merged with anti-grazing: (endpoint voxel int32[R,3], endpoint
+    # valid bool[R], clearing bool[R]); else None
+    grazing: Optional[tuple]
+
+
+def _count_walk(rays, max_steps: int, slots):
+    """While recording, the walk's counters: ``integrate.walk_samples``
+    (``slots`` of lengths, the (step, lane) slots the walk executes) and
+    ``integrate.walk_samples_useful`` (those inside a ray)."""
+    if not timing.recording():
+        return
+    lengths = tsdf_walk.walk_lengths(rays.setup.num_steps, rays.valid,
+                                     max_steps)
+    timing.count("integrate.walk_samples", slots(lengths))
+    timing.count("integrate.walk_samples_useful", lengths.sum())
+
+
+def _chain_samples(layer, rays, max_steps: int, cfg, state=None):
+    """The plain walk, weigh and lookup over [max_steps, R] samples: their
+    voxels, sdf, weights, flat pool offsets and ``ok`` (in the walk's mask,
+    not grazing, in an allocated block), and the fast state (given for the
+    fast integrator, whose early exit sits between walk and weigh)."""
     with timing.timer("integrate.walk"):
-        voxels, mask = raycast.cast_rays(setup, max_steps, valid)
-        timing.count("integrate.walk_samples", mask.numel())
-        if timing.recording():
-            # The mask holds for steps 0..num_steps of a valid lane, so the
-            # count is the sum of min(num_steps + 1, max_steps) over valid
-            # lanes: where(valid, min(num_steps, max_steps - 1), -1) summed
-            # on the device (three launches), plus the lanes.
-            lanes = valid.numel()
-            wide = lanes * max_steps >= 2 ** 31
-            last = torch.clamp(setup.num_steps, max=max_steps - 1)
-            timing.count("integrate.walk_samples_useful",
-                         torch.where(valid, last, -1).sum(
-                             dtype=torch.int64 if wide else torch.int32))
-            timing.count("integrate.walk_samples_useful", lanes)
-    if method == "fast":
+        voxels, mask = raycast.cast_rays(rays.setup, max_steps, rays.valid)
+        _count_walk(rays, max_steps, lambda lengths: mask.numel())
+    if state is not None:
         mask, state = _fast_early_exit_and_stamp(voxels, mask, cfg, state)
     with timing.timer("integrate.weigh"):
-        sdf, w = _per_sample_contributions(voxels, mask, origin, points_G,
-                                           weights, layer.voxel_size, cfg)
-        if method == "merged" and cfg.enable_anti_grazing:
-            mask = mask & _anti_grazing_mask(voxels, endpoint_info, clearing)
+        sdf, w = _per_sample_contributions(voxels, mask, rays.origin,
+                                           rays.points, rays.weights,
+                                           layer.voxel_size, cfg)
+        if rays.grazing is not None:
+            gvi, ends, clearing = rays.grazing
+            mask = mask & _anti_grazing_mask(voxels, _endpoint_stamps(
+                gvi, ends), gvi, clearing)
             w = torch.where(mask, w, 0.0)
     with timing.timer("integrate.lookup"):
         flat, found = vlayer.global_voxel_to_flat(layer, voxels)
-    with timing.timer("integrate.scatter"):
-        acc = _accumulate_flat(layer, flat, mask & found, sdf, w, colors, cfg,
-                               use_color)
-    layer = apply_contributions(layer, *acc, cfg)
-    return layer, state, overflowed
+        timing.count("integrate.block_lookups", found.numel())
+    return voxels, sdf, w, flat, mask & found, state
+
+
+def _kernel_inputs(rays, counts=None) -> dict:
+    """The kernel's per-ray inputs (``tsdf_walk.make_params``), set up as
+    the chain sets them up."""
+    v_po = rays.points - rays.origin
+    grazing = None
+    if rays.grazing is not None:
+        gvi, ends, clearing = rays.grazing
+        grazing = (_endpoint_stamps(gvi, ends), gvi, clearing)
+    return dict(dda=raycast.dda_start(rays.setup),
+                num_steps=rays.setup.num_steps, valid=rays.valid,
+                origin=rays.origin, v_po=v_po,
+                dist=torch.linalg.vector_norm(v_po, dim=-1),
+                weights=rays.weights, colors=rays.colors, grazing=grazing,
+                counts=counts)
+
+
+def _walk_kernel(layer, rays, max_steps: int, cfg):
+    """Walk, weigh, lookup and scatter in one launch of the kernel; while
+    recording, its counters: the warp slots it executes, and the hash
+    probes and block lookups it makes (added on the device)."""
+    _count_walk(rays, max_steps, tsdf_walk.warp_slots)
+    counts = None
+    if timing.recording():
+        counts = torch.zeros(2, dtype=torch.int64, device=layer.device)
+    acc = tsdf_walk.walk_and_accumulate(layer, max_steps, cfg,
+                                        **_kernel_inputs(rays, counts))
+    if counts is not None:
+        timing.count("hash.probes", counts[0])
+        timing.count("hash.lookup_lanes", counts[1])
+        timing.count("integrate.block_lookups", counts[1])
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -369,14 +452,18 @@ def _bundle_rays(layer, points_G, weights, colors, valid, clearing,
             (gvi_s, rep_valid & ~clearing_s))
 
 
-def _anti_grazing_mask(voxels, endpoint_info, clearing):
-    """False where a visited voxel is another non-clearing bundle's
-    endpoint (cc:415-422), through a 2^20 endpoint stamp table."""
-    endpoint_gvi, endpoint_valid = endpoint_info
+def _endpoint_stamps(endpoint_gvi, endpoint_valid):
+    """bool[2^20]: the stamp table of the non-clearing bundles' endpoint
+    voxels (by ``_hash_gvi``, 20 bits)."""
     bits = 20
-    stamp = vlayer.scatter_mask(1 << bits, _hash_gvi(endpoint_gvi, bits),
-                                endpoint_valid)
-    is_endpoint = stamp[_hash_gvi(voxels, bits)]
+    return vlayer.scatter_mask(1 << bits, _hash_gvi(endpoint_gvi, bits),
+                               endpoint_valid)
+
+
+def _anti_grazing_mask(voxels, stamp, endpoint_gvi, clearing):
+    """False where a visited voxel is another non-clearing bundle's
+    endpoint (cc:415-422), through the endpoint stamp table."""
+    is_endpoint = stamp[_hash_gvi(voxels, 20)]
     own = (voxels == endpoint_gvi[None]).all(-1) & ~clearing[None, :]
     return ~(is_endpoint & ~own)
 
