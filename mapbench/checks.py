@@ -4,7 +4,10 @@ reference (``mapbench/reference``), as one number beside its limit.
 ``tsdf``: the reference integrates every scan handed over, in order,
 from the empty map, by the rule of the configuration's integrator
 (``server.method``: ``merged`` is voxblox's merged ray-casting
-integrator, ``projective`` the program's projective one). The number is
+integrator, ``projective`` the program's projective one). A rolling map
+(``server.max_block_distance_from_body`` > 0) drops, after each scan,
+every block farther than that from the scan's sensor, as voxblox's
+tsdf_server does (tsdf_server.cc:314-319). The number is
 the share of voxels observed on either side whose distance differs by
 more than ``D_TOL`` or whose weight differs by more than ``W_TOL`` of
 it. The reference takes nothing from the program: the scans and poses
@@ -21,12 +24,16 @@ import torch
 
 from .reference import merged as rmerged
 from .reference import tsdf as rtsdf
-from .reference.store import BlockStore
+from .reference.store import BlockStore, remove_distant_blocks
 
 D_TOL = 1e-4  # metres
 W_TOL = 1e-4  # share of the weight
 ACTIVE = 128
 VPS = 16
+# A replay keeps a scan's samples for its next hand-off while they fit.
+CACHE_BYTES = 8 << 30
+# Room for float32 rounding in the distances ``rolling_start`` relies on.
+ROLLING_MARGIN_M = 1.0
 
 
 def tsdf_cfg(cfg):
@@ -89,16 +96,48 @@ def scan_samples(store, scan, cfg, traffic, dtype):
     raise ValueError(f"no reference for the integrator {method!r}")
 
 
+def rolling_start(origins, reach):
+    """The first hand-off from which a replay of a rolling map leaves the
+    same map as a replay of them all: the latest k such that two sensor
+    origins from k on lie more than ``2 * reach`` (and a margin) apart,
+    0 if none do. No block lies within ``reach`` of both, so whatever a
+    block held before k, it is dropped at one of them in both replays,
+    and from there on both fold the same samples into it from empty (the
+    samples do not depend on the map, nor a block's fold on another)."""
+    o = torch.stack([x.double() for x in origins])
+    far = torch.cdist(o, o) > 2 * reach + ROLLING_MARGIN_M
+    firsts = torch.nonzero(far.triu(1).any(1)).flatten()
+    return int(firsts.max()) if firsts.numel() else 0
+
+
+def _nbytes(s):
+    return sum(x.numel() * x.element_size() for x in s)
+
+
 def replay(cfg, traffic, scans, handed, device, dtype):
-    """The reference map of every scan handed over, from the empty map."""
+    """The reference map of every scan handed over, from the empty map.
+    A rolling map replays only from ``rolling_start`` on."""
     store = rtsdf.new_store(cfg["map"]["voxel_size"], VPS,
                             cfg["map"]["max_blocks"], device, dtype)
     tc = tsdf_cfg(cfg)
-    seen = {}
-    for idx in handed:
-        if idx not in seen:
-            seen[idx] = scan_samples(store, scans[idx], cfg, traffic, dtype)
-        rtsdf.fold(store, *seen[idx], tc)
+    reach = float(cfg["server"].get("max_block_distance_from_body", 0.0))
+    if reach > 0:
+        handed = handed[rolling_start([scans[i][1] for i in handed],
+                                      reach):]
+    last = {idx: k for k, idx in enumerate(handed)}
+    cache, cached = {}, 0
+    for k, idx in enumerate(handed):
+        s = cache.pop(idx, None)
+        if s is None:
+            s = scan_samples(store, scans[idx], cfg, traffic, dtype)
+        else:
+            cached -= _nbytes(s)
+        if last[idx] > k and cached + _nbytes(s) <= CACHE_BYTES:
+            cache[idx] = s
+            cached += _nbytes(s)
+        rtsdf.fold(store, *s, tc)
+        if reach > 0:
+            remove_distant_blocks(store, scans[idx][1], reach)
     return store
 
 

@@ -158,7 +158,10 @@ def run_cell(root, workload, seed, seconds, trace, device, t_start,
     limits = read_json(limits_file(root, workload))
 
     # Inputs from the seed: the scene, the orbit and its scans.
+    t_scans = time.perf_counter()
     _, scans = scene.make_traffic_data(traffic, cfg["sensor"], seed, device)
+    sync(device)
+    scans_s = time.perf_counter() - t_scans
     srv = build_server(cfg, device)
     step = make_step(srv, traffic)
     n = len(scans)
@@ -219,6 +222,7 @@ def run_cell(root, workload, seed, seconds, trace, device, t_start,
     sync(device)
     dev_info = device_info(device)
     blocks = int(srv.layer.num_blocks)
+    live_blocks = int(srv.layer.active_mask().sum())
 
     metrics = {}
     if trace:
@@ -257,7 +261,8 @@ def run_cell(root, workload, seed, seconds, trace, device, t_start,
     result["checks"] = numbers
     ends = np.cumsum(lat)
     per_s = np.bincount((ends // 1.0).astype(np.int64)).tolist()
-    extra = dict(window_scans=len(lat), judge_s=judge_s, blocks=blocks,
+    extra = dict(window_scans=len(lat), scans_s=scans_s, judge_s=judge_s,
+                 blocks=blocks, live_blocks=live_blocks,
                  latency_median_ms=1e3 * statistics.median(lat),
                  scans_each_second=per_s)
     return result, extra

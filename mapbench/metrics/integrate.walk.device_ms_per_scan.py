@@ -1,8 +1,10 @@
 """Device time of the kernels under the TSDF step's span
-``integrate.walk``, per scan: the voxel walk (``ops/raycast.cast_rays``:
-every lane for the static step count). The span is a sibling of the
-other stage spans directly under ``integrate_<method>``, so no kernel is
-counted under two of them."""
+``integrate.walk``, per scan: on the card for ``simple`` and ``merged``
+the per-ray set-up and the one walk-and-accumulate kernel, which also
+weighs, looks up and scatters (``ops/tsdf_walk.py``); elsewhere the
+voxel walk alone (``ops/raycast.cast_rays``). The span is a sibling of
+the other stage spans directly under ``integrate_<method>``, so no
+kernel is counted under two of them."""
 
 SPAN = "integrate.walk"
 

@@ -158,9 +158,8 @@ def sample_values(voxels, point, origin, weight, cfg, dtype):
 
 def samples(store, R, t, points_C, cfg, dtype, chunk=65536):
     """One scan's samples, summed per voxel, for the blocks its walks
-    visit, which it allocates in ``store``: (rows, w, w * sdf [rows,
-    vps^3]). The samples do not depend on the map, so a scan seen again
-    reuses them."""
+    visit: (block indices [B, 3], w, w * sdf [B, vps^3]). The samples do
+    not depend on the map, so a scan seen again reuses them."""
     vps = store.vps
     trunc = cfg["default_truncation_distance"]
     origin = t.to(dtype)
@@ -177,12 +176,12 @@ def samples(store, R, t, points_C, cfg, dtype, chunk=65536):
     dev = store.device
     if not flat_parts:
         empty = torch.zeros((0, vps ** 3), dtype=dtype, device=dev)
-        return torch.zeros(0, dtype=torch.int64, device=dev), empty, empty
+        return (torch.zeros((0, 3), dtype=torch.int64, device=dev), empty,
+                empty)
     gvi = torch.cat(flat_parts)
     blocks = torch.div(gvi, vps, rounding_mode="floor")
     local = gvi - blocks * vps
     ub, inv = torch.unique(blocks, dim=0, return_inverse=True)
-    rows = store.add(ub)
     lin = local[:, 0] + vps * (local[:, 1] + vps * local[:, 2])
     cell = inv * vps ** 3 + lin
     n = ub.shape[0] * vps ** 3
@@ -190,7 +189,7 @@ def samples(store, R, t, points_C, cfg, dtype, chunk=65536):
         0, cell, torch.cat(w_parts)).view(-1, vps ** 3)
     dwd = torch.zeros(n, dtype=dtype, device=dev).index_add_(
         0, cell, torch.cat(wd_parts)).view(-1, vps ** 3)
-    return rows, dw, dwd
+    return ub, dw, dwd
 
 
 def new_store(voxel, vps, cap, device, dtype):

@@ -1,6 +1,7 @@
 """Voxel blocks keyed by block index (x, y, z), rows appended as blocks
-appear; x-fastest voxel order inside a block, as the program lays out a
-block's channels, so a block converts row for row."""
+appear and closed up as blocks go; x-fastest voxel order inside a block,
+as the program lays out a block's channels, so a block converts row for
+row."""
 
 from __future__ import annotations
 
@@ -70,6 +71,21 @@ class BlockStore:
             self._reindex()
         return self.rows_of(ijk)
 
+    def remove(self, doomed):
+        """Drop the blocks of the rows where ``doomed`` [n] holds: the
+        others close up, the freed rows are zeroed, so a block added
+        again later starts empty."""
+        keep = torch.nonzero(~doomed).flatten()
+        m = int(keep.shape[0])
+        if m == self.n:
+            return
+        self.ijk[:m] = self.ijk[keep]
+        for c in self.ch.values():
+            c[:m] = c[keep]
+            c[m:self.n] = 0
+        self.n = m
+        self._reindex()
+
     @classmethod
     def from_rows(cls, ijk, channels, cap, vps):
         """A store holding the given blocks (ijk [N, 3]) and channel rows
@@ -90,3 +106,14 @@ def neighbour_rows(store, offsets):
     where absent."""
     off = torch.as_tensor(offsets, dtype=torch.int64, device=store.device)
     return store.rows_of(store.ijk[:store.n, None, :] + off[None])
+
+
+def remove_distant_blocks(store, origin, max_distance):
+    """voxblox's ``Layer::removeDistantBlocks`` (core/layer.h:170-182):
+    drop every block whose centre, (ijk + 0.5) * block size in float32,
+    lies farther than ``max_distance`` from ``origin``."""
+    bs = store.voxel_size * store.vps
+    centres = (store.ijk[:store.n].to(torch.float32) + 0.5) * bs
+    dist = torch.linalg.vector_norm(centres - origin.to(torch.float32),
+                                    dim=-1)
+    store.remove(dist > max_distance)

@@ -379,27 +379,28 @@ def scan_update(bijk, img, R, t, cfg, voxel, vps, dtype, hiz=None):
 
 
 def samples(store, R, t, img, cfg, dtype):
-    """One scan's samples for its candidate blocks, which it allocates in
-    ``store``: (rows, w, w * sdf [rows, vps^3]). The samples do not
-    depend on the map, so a scan seen again reuses them."""
+    """One scan's samples for its candidate blocks: (block indices [B,
+    3], w, w * sdf [B, vps^3]). The samples do not depend on the map, so
+    a scan seen again reuses them."""
     voxel = cfg["voxel_size"]
     R = R.to(dtype)
     t = t.to(dtype)
     hiz = _hiz(_pix_eff(img.rng, cfg))
     cand = candidate_blocks(img, hiz, R, t, cfg, voxel, store.vps, dtype)
-    rows = store.add(cand)
     parts = [scan_update(cand[lo:lo + 1024], img, R, t, cfg, voxel,
                          store.vps, dtype, hiz)
              for lo in range(0, cand.shape[0], 1024)]
     dw = torch.cat([p[0] for p in parts])
     dwd = torch.cat([p[1] for p in parts])
-    return rows, dw, dwd
+    return cand, dw, dwd
 
 
-def fold(store, rows, dw, dwd, cfg):
-    """Fold samples into the running weighted means; returns which of
-    ``rows`` took an update."""
+def fold(store, ijk, dw, dwd, cfg):
+    """Fold samples of blocks ijk [B, 3] into the running weighted means,
+    adding the blocks the store lacks; returns which blocks took an
+    update."""
     trunc = cfg["default_truncation_distance"]
+    rows = store.add(ijk)
     old_d = store.ch["tsdf"][rows]
     old_w = store.ch["weight"][rows]
     new_w = old_w + dw

@@ -1,6 +1,6 @@
 """The TSDF step's stage and counter metrics on the tiny CPU cell: the two
 counter metrics read the program's recording of the traced window, the
-six stage device times read nothing on the CPU (it has no GPU-side
+three stage device times read nothing on the CPU (it has no GPU-side
 annotations), and a run without a trace records nothing."""
 
 from voxblox_tpu_torch.utils import timing
@@ -10,7 +10,7 @@ from mapbench import harness
 from .tiny import make_root, run, small_windows
 
 STAGES = [f"integrate.{s}.device_ms_per_scan" for s in
-          ("bundle", "allocate", "walk", "weigh", "lookup", "scatter")]
+          ("bundle", "allocate", "walk")]
 
 
 def test_traced_run_reads_the_program_counters(tmp_path, monkeypatch):

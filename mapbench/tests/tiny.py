@@ -2,7 +2,9 @@
 configuration shrunk (0.2 m voxels, a 64x48 camera, 8 poses), with the
 tsdf_only mix, in a temporary root. A cell ``tiny.<method>`` runs the
 configuration with that integrator (``merged``, or the program's
-``projective``)."""
+``projective``). ``add_rolling`` adds ``tiny.rolling``: a spinning
+LiDAR on a vehicle round a small street, mapped by ``merged`` as a
+rolling map."""
 
 from __future__ import annotations
 
@@ -86,3 +88,56 @@ def run(root, method="merged", seed=2 ** 31 + 5, trace=False, keep=None):
     torch.manual_seed(0)
     return harness.run_cell(root, f"tiny.{method}", seed, 0.2, trace, CPU,
                             0.0, keep=keep)
+
+
+ROLLING_SENSOR = {"model": "spherical", "width": 128, "height": 16,
+                  "vfov_deg": [-24.8, 2.0], "max_range_m": 20.0}
+ROLLING_TRAFFIC = {
+    "name": "street_tiny", "ops": ["integrate"], "cloud": "flat",
+    "warm_steps": 4, "layout_seed": 20261,
+    "scene": {"cylinder_radius": 0, "cylinder_height": 0,
+              "road": {"radius_m": 10.0, "half_width_m": 3.0},
+              "buildings": {"frontage_m": [4, 8], "depth_m": [2, 4],
+                            "height_m": [3, 8], "setback_m": [1, 2],
+                            "gap_m": [1, 4]},
+              "cars": {"count": 6, "size_m": [4.5, 1.8, 1.5]},
+              "poles": {"count": 6, "radius_m": [0.15, 0.3],
+                        "height_m": [4, 8], "offset_m": [0.3, 1.0]}},
+    "orbit": {"mount": "vehicle", "poses": 16, "radius_m": 10.0,
+              "height_m": 1.73, "jitter_m": 0.05}}
+
+
+def add_rolling(root, reach=6.0, max_blocks=3072):
+    """Add the cell ``tiny.rolling`` to a root from ``make_root``: 0.2 m
+    voxels, 8 m rays, blocks farther than ``reach`` from the sensor
+    dropped after every scan, and a pool of ``max_blocks``, enough for
+    every block the loop ever makes (the program does not reuse the rows
+    of dropped blocks)."""
+    mb = os.path.join(root, "mapbench")
+    with open(os.path.join(REPO, "mapbench", "configs",
+                           "cow_and_lady.5cm.merged.json")) as f:
+        cfg = json.load(f)
+    cfg.update(name="tiny_rolling", sensor=ROLLING_SENSOR,
+               server={"method": "merged",
+                       "max_block_distance_from_body": reach})
+    cfg["map"].update(voxel_size=0.2, max_blocks=max_blocks)
+    cfg["tsdf"].update(default_truncation_distance=0.8, max_ray_length_m=8.0)
+    with open(os.path.join(mb, "configs", "tiny_rolling.json"), "w") as f:
+        json.dump(cfg, f)
+    with open(harness.traffic_file(root, "street_tiny"), "w") as f:
+        json.dump(ROLLING_TRAFFIC, f)
+    shutil.copy(harness.limits_file(REPO, CELL),
+                harness.limits_file(root, "tiny.rolling"))
+    path = os.path.join(root, "BENCHMARK.json")
+    with open(path) as f:
+        bench = json.load(f)
+    bench["configs"].append(dict(bench["configs"][0], name="tiny_rolling",
+                                 file="mapbench/configs/tiny_rolling.json"))
+    bench["workloads"].append(dict(name="tiny.rolling", config="tiny_rolling",
+                                   traffic="street_tiny", chips=1,
+                                   why="a CPU test"))
+    for m in bench["per_layer"]:
+        m["workloads"].append("tiny.rolling")
+    with open(path, "w") as f:
+        json.dump(bench, f)
+    return root
