@@ -7,7 +7,8 @@ rank wins, winners get ascending slot ids in lane order — so pool rows
 come out identical to the JAX rows and maps compare row by row.
 
 The JAX ``lax.while_loop``s are Python loops here; each loop test reads
-one device value (``_runtime.host_bool``/``host_int``).
+one device value (``_runtime.host_bool``/``host_int``), but ``lookup`` and
+``remove`` read the probe bound once and run that many rounds.
 """
 
 from __future__ import annotations
@@ -106,9 +107,14 @@ def lookup(table: HashTable, w0, w1, max_psl: int | None = None):
     return out
 
 
-def insert(table: HashTable, w0, w1, valid, base_slot=None):
+def insert(table: HashTable, w0, w1, valid, base_slot=None, rows=None):
     """Parallel insert of mutually unique keys. Returns (table, slots
-    int32[K] (-1 where not inserted), ok bool[K])."""
+    int32[K] (-1 where not inserted), ok bool[K]).
+
+    The i-th new key in claim order takes the slot ``base_slot + i``
+    (``base_slot`` defaults to ``table.count``), or ``rows[i]`` when a
+    row map int32[K] is given: rows that need not be contiguous. Either
+    way ``count`` ends at ``base_slot`` plus the keys inserted."""
     cap = table.capacity
     mask = cap - 1
     k = w0.shape[0]
@@ -117,6 +123,7 @@ def insert(table: HashTable, w0, w1, valid, base_slot=None):
     rank = torch.arange(k, dtype=torch.int32, device=dev)
     assigned = table.count if base_slot is None else base_slot
     assigned = torch.as_tensor(assigned, dtype=torch.int32, device=dev)
+    start = assigned
     keys_w0, keys_w1, slot_arr = table.keys_w0, table.keys_w1, table.slot
     max_psl = table.max_psl
     disp = torch.zeros(k, dtype=torch.int64, device=dev)
@@ -138,6 +145,8 @@ def insert(table: HashTable, w0, w1, valid, base_slot=None):
         won = attempt & (claims[idx] == rank)
         new_ids = assigned + torch.cumsum(won.to(torch.int32), 0,
                                           dtype=torch.int32) - 1
+        if rows is not None:
+            new_ids = rows[(new_ids - start).clamp(min=0).to(torch.int64)]
         keys_w0 = _set_cells(keys_w0, idx, w0, won)
         keys_w1 = _set_cells(keys_w1, idx, w1, won)
         slot_arr = _set_cells(slot_arr, idx, new_ids, won)
@@ -156,15 +165,16 @@ def insert(table: HashTable, w0, w1, valid, base_slot=None):
 
 
 def remove(table: HashTable, w0, w1, valid):
-    """Tombstone-delete unique keys. Returns (table, removed count)."""
+    """Tombstone-delete unique keys. Returns (table, removed count).
+    Probes 0..max_psl: every key in the table lies within that bound, so
+    the JAX loop's stop once every lane resolved changes nothing, and one
+    read of the bound replaces a read per probe round."""
     mask = table.capacity - 1
     h = hash_words(w0, w1)
     keys_w1, slot_arr = table.keys_w1, table.slot
     removed = torch.zeros((), dtype=torch.int32, device=w0.device)
     pending = valid.clone()
-    for p in range(MAX_INSERT_ROUNDS):
-        if not _runtime.host_bool(pending.any()):
-            break
+    for p in range(_runtime.host_int(table.max_psl) + 1):
         idx = (h + p) & mask
         k1 = keys_w1[idx]
         hit = pending & (table.keys_w0[idx] == w0) & (k1 == w1)

@@ -98,16 +98,6 @@ class MeshLayer:
         else:
             self.blocks[key] = mesh
 
-    def clear_distant(self, center, max_distance: float):
-        center = np.asarray(center)
-        doomed = [
-            k for k in self.blocks
-            if np.linalg.norm((np.asarray(k) + 0.5) * self.block_size - center)
-            > max_distance
-        ]
-        for k in doomed:
-            del self.blocks[k]
-
     def combined(self):
         """Concatenate all block meshes -> (vertices, normals, colors)."""
         if not self.blocks:
@@ -601,16 +591,22 @@ def update_mesh_pool(layer: vlayer.VoxelLayer, pool: MeshPool,
     vlayer.put_rows(pool.tris, rows, row_ok, content)
     vlayer.put_rows(pool.counts, rows, row_ok, counts)
     vlayer.put_rows(pool.overflow_rows, rows, row_ok, ovf)
-    # Rows whose block was deactivated hold stale triangles; zero their
-    # counts every update so exports skip them.
-    active = layer.active_mask()
-    pool.counts.mul_(active)
-    pool.overflow_rows.logical_and_(active)
+    clear_inactive_rows(pool, layer)
     # Processed rows: mesh dirty bit off, publish-pending bit on.
     cur = layer.block_flags[safe_rows]
     vlayer.put_rows(layer.block_flags, rows, row_ok,
                     (cur & (~vlayer.DIRTY_MESH & 0xFF)) | vlayer.DIRTY_PUB)
     return layer, pool, more
+
+
+def clear_inactive_rows(pool: MeshPool, layer: vlayer.VoxelLayer):
+    """Empty the mesh rows of inactive blocks (count 0, no overflow flag):
+    a removed block's row then exports nothing, and the block a reused
+    row holds next shows none of its triangles before it is marched."""
+    active = layer.active_mask()
+    pool.counts.mul_(active)
+    pool.overflow_rows.logical_and_(active)
+    return pool
 
 
 def _export_pool(pool: MeshPool, active, total_cap: int):

@@ -7,7 +7,8 @@ voxblox_tpu/server/mapper.py).
   images) with the transactional grow-and-retry budget ladder: an
   overflowed scan applies nothing and is replayed at grown budgets by
   ``check_overflow``. ``max_block_distance_from_body`` drops blocks far
-  from the sensor after every scan.
+  from the sensor after every scan (a rolling map: freed pool rows are
+  reused, and the hash table is rebuilt once its tombstones pile up).
 - ``EsdfServer``: adds the incremental ESDF; ``insert_pointcloud_and_
   update_esdf`` is the online step (projective integrate + incremental
   ESDF per scan) with overflow flags kept on the device until
@@ -139,6 +140,11 @@ class TsdfServer:
                               torch.zeros(3, device=self.device))
         self.overflow_check_interval = max(1, int(overflow_check_interval))
         self._overflow_acc = None  # device-side pool-overflow flag
+        # Rolling map: a device flag set by the removal when tombstones
+        # pile up, read with the overflow flag; the removal after that
+        # read rebuilds the table.
+        self._tombstones_due = None
+        self._rebuild_table = False
         # Scans since the last check with their device budget-overflow
         # flag; flagged ones replay at grown budgets in check_overflow.
         self._pending_scans: list = []
@@ -200,13 +206,26 @@ class TsdfServer:
         if (self.num_scans + 1) % self.overflow_check_interval == 0:
             self.check_overflow()
         if self.max_block_distance > 0.0:
-            with timing.timer("remove_distant_blocks"):
-                self.layer = vlayer.remove_distant_blocks(
-                    self.layer, T_G_C[1], self.max_block_distance)
-                self.mesh_layer.clear_distant(_runtime.to_host(T_G_C[1]),
-                                              self.max_block_distance)
+            self._remove_distant(T_G_C[1])
         self.num_scans += 1
         return T_G_C
+
+    def _remove_distant(self, center):
+        """Drop the blocks farther than ``max_block_distance_from_body``
+        from the sensor, with their rows of the device mesh pool (the host
+        MeshLayer is refilled from that pool on export); rebuild the hash
+        table when the last overflow read found its tombstones due (no
+        read of its own)."""
+        with timing.timer("rolling.remove", scan=self.num_scans):
+            self.layer = vlayer.remove_distant_blocks(
+                self.layer, center, self.max_block_distance)
+            with timing.timer("rolling.remove.hash"):
+                if self._rebuild_table:
+                    self.layer = vlayer.rebuild_table(self.layer)
+                    self._rebuild_table = False
+                self._tombstones_due = vlayer.tombstones_due(self.layer)
+            with timing.timer("rolling.remove.clear"):
+                mesh_ops.clear_inactive_rows(self.mesh_pool, self.layer)
 
     # -- projective grow-and-retry ---------------------------------------
     def _record_scan(self, T_G_C, points_C, colors, budget_ovf,
@@ -268,16 +287,25 @@ class TsdfServer:
             if ovf:
                 self._replay_scan(T, pts, cols, fused)
 
+    def _read_flags(self, names):
+        """Read the named device flags, and a rolling map's tombstone
+        flag, in one host read; clear them. Returns {name: bool}."""
+        names = [n for n in (*names, "_tombstones_due")
+                 if getattr(self, n) is not None]
+        vals = dict(zip(names, _runtime.host_bools(
+            [getattr(self, n) for n in names])))
+        for n in names:
+            setattr(self, n, None)
+        self._rebuild_table |= vals.get("_tombstones_due", False)
+        return vals
+
     def check_overflow(self):
         """Resolve deferred overflow flags: budget overflows replay their
         scans; pool overflow raises."""
         with timing.timer("server.check_overflow", scan=self.num_scans):
             self._drain_pending_scans()
-            if self._overflow_acc is None:
-                return
-            (ovf,) = _runtime.host_bools([self._overflow_acc])
-            self._overflow_acc = None
-        if ovf:
+            vals = self._read_flags(("_overflow_acc",))
+        if vals.get("_overflow_acc"):
             raise MemoryError(
                 "block pool overflow; increase MapConfig.max_blocks")
 
@@ -364,6 +392,8 @@ class TsdfServer:
         self.num_scans = 0
         self._pending_scans = []
         self._overflow_acc = None
+        self._tombstones_due = None
+        self._rebuild_table = False
 
     # -- map files ---------------------------------------------------------
     def save_map(self, path: str):
@@ -509,16 +539,8 @@ class EsdfServer(TsdfServer):
 
     def check_overflow(self):
         self._drain_pending_scans()
-        names = [n for n in ("_overflow_acc", "_esdf_pool_ovf",
-                             "_esdf_region_ovf")
-                 if getattr(self, n) is not None]
-        if not names:
-            return
-        vals = dict(zip(names, _runtime.host_bools(
-            [getattr(self, n) for n in names])))
-        self._overflow_acc = None
-        self._esdf_pool_ovf = None
-        self._esdf_region_ovf = None
+        vals = self._read_flags(("_overflow_acc", "_esdf_pool_ovf",
+                                 "_esdf_region_ovf"))
         if vals.get("_overflow_acc"):
             raise MemoryError(
                 "block pool overflow; increase MapConfig.max_blocks")
