@@ -18,7 +18,7 @@ sharing the card over gloo).
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1 device   nvidia-smi name/power limit, refuse without a GPU
   2 build    nvcc the kernels from voxblox_tpu_torch/csrc/ (K1 and K2,
-             the walk kernel)
+             the walk kernel, the allocation kernel)
   3 main     warm a 32-pose orbit, then time 12 online steps with the
              kernel counters zeroed just before and read just after
   4 kernel   K1 against its plain version at the shape and constants of
@@ -116,6 +116,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
              calls, the same checks, every rank's results the same bits.
              Seconds, and count, bytes and seconds of each collective,
              per call
+ 23 alloc    (after 2) the allocation kernel (ops/tsdf_alloc.py) against the
+             plain chain at the three benchmark cells' rays
+             (scripts/tsdf_alloc_kernel.py: a few warm scans of each cell,
+             then 2 scans on copies of their allocation state, the same
+             table, rows and flags from both; event-to-event ms of both
+             paths, the find pass's device time, its counters and bound)
 Prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -151,6 +157,7 @@ from voxblox_tpu_torch.ops import esdf as esdf_ops  # noqa: E402
 from voxblox_tpu_torch.ops import esdf_relax  # noqa: E402
 from voxblox_tpu_torch.ops import projective as projective_ops  # noqa: E402
 from voxblox_tpu_torch.ops import tsdf as tsdf_ops  # noqa: E402
+from voxblox_tpu_torch.ops import tsdf_alloc  # noqa: E402
 from voxblox_tpu_torch.ops import tsdf_walk  # noqa: E402
 from voxblox_tpu_torch.models import maps  # noqa: E402
 from voxblox_tpu_torch.server.mapper import (  # noqa: E402
@@ -1455,6 +1462,29 @@ def raycast_phase(scans, dev, profile=False):
     log("raycast: " + json.dumps(res))
     return res
 
+
+
+ALLOC_CELLS = (("cow_and_lady.5cm.merged.tsdf_only", 8),
+               ("cow_and_lady.2cm.merged.tsdf_only", 8),
+               ("kitti.0.2m.rolling.street_loop", 200))  # (cell, warm scans)
+ALLOC_SEED = 2 ** 31 + 1717
+
+
+def alloc_phase():
+    """The allocation kernel against the plain chain at each cell's rays
+    (``scripts/tsdf_alloc_kernel.measure``, 2 scans, 3 repetitions)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "tsdf_alloc_kernel", os.path.join("scripts", "tsdf_alloc_kernel.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    res = {}
+    for cell, warm in ALLOC_CELLS:
+        r = mod.measure(cell, ALLOC_SEED, warm=warm, n_scans=2, reps=3)
+        r.pop("ptxas")
+        res[cell] = r
+        log(f"alloc {cell}: " + json.dumps(r))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2891,10 +2921,14 @@ def main():
     esdf_relax.build()
     esdf_relax._lib()
     tsdf_walk._lib()
+    tsdf_alloc._lib()
     out["build_s"] = time.perf_counter() - t0
     out["build_ptxas"] = esdf_relax.BUILD_INFO.get("ptxas", "(cached)")
     out["build_ptxas_tsdf_walk"] = tsdf_walk.BUILD_INFO.get("ptxas",
                                                             "(cached)")
+    out["build_ptxas_tsdf_alloc"] = tsdf_alloc.BUILD_INFO.get("ptxas",
+                                                              "(cached)")
+    log("build tsdf_alloc: " + out["build_ptxas_tsdf_alloc"])
     ctas = dict(k1=esdf_relax.ctas_per_sm(False),
                 k2=esdf_relax.ctas_per_sm(True))
     out["ctas_per_sm"] = ctas
@@ -2902,6 +2936,10 @@ def main():
         f"{out['build_ptxas']}")
     assert min(ctas.values()) >= 1, ctas
     done("build")
+
+    # 23. The allocation kernel against the chain at the cells' rays.
+    out["alloc"] = alloc_phase()
+    done("alloc kernel")
 
     # 3. Main path at full size, kernel relaxation.
     t0 = time.perf_counter()
@@ -3113,6 +3151,18 @@ def main():
             raycast_fast=out["raycast"]["fast"]["walk_launches"]),
         other_shapes=[dict(path="raycast simple", **{
             k: out["raycast"]["simple"]["walk_kernel"][k] for k in keys})]))
+    alloc = out["alloc"]
+    first = alloc[ALLOC_CELLS[0][0]]
+    line["kernels"].append(dict(
+        name="tsdf_alloc_kernel", route="cuda",
+        source="voxblox_tpu_torch/csrc/tsdf_alloc.cu", replaces=None,
+        launches=first["rounds"], ms=first["find_pass_ms_median"],
+        plain_ms=first["chain_ms_median"], bound_ms=first["bound_ms"],
+        bound_by="bytes", library_ms=None,
+        other_shapes=[dict(path=cell, ms=a["find_pass_ms_median"],
+                           plain_ms=a["chain_ms_median"],
+                           bound_ms=a["bound_ms"])
+                      for cell, a in alloc.items()]))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -515,6 +515,9 @@ def test_cuda_counters_on_hand_checked_rays(cuda_device, monkeypatch):
         return lookup(table, w0, w1, max_psl)
 
     monkeypatch.setattr(vhash, "lookup", spy)
+    # The allocation through its plain chain, whose lookups the spy counts
+    # (on the card it runs ops/tsdf_alloc's kernel, with counts of its own).
+    monkeypatch.setattr(tt, "_allocate_kernel", tt._allocate_chain)
     timing.start_recording()
     layer, _, _ = tt.integrate_pointcloud(layer, pose, pts,
                                           torch.zeros_like(pts), cfg,

@@ -253,43 +253,67 @@ def free_rows(layer: VoxelLayer, k: int):
     return out[:k].to(torch.int32)
 
 
+PENDING_SIZE = 8192  # cells of the pending buffer a round dedupes into
+
+
 def allocate_blocks(layer: VoxelLayer, block_ijk, valid,
-                    pending_size: int = 8192):
+                    pending_size: int = PENDING_SIZE):
     """Ensure blocks exist; returns (layer, overflowed bool[]).
 
-    Discovery dedupes missing candidates through a pending buffer indexed
-    by key hash, then a parallel hash insert claims pool rows; candidates
-    that collide in the buffer wait for the next round. The buffer keeps
-    the LAST colliding lane (the JAX CPU scatter's order), made explicit
-    here with a scatter-max of lane ids so w0/w1 can never mix lanes.
-    New blocks take rows in ``free_rows`` order: a pool that never
-    removed a block hands them out from the high-water mark up, as the
-    JAX package does, and a full pool reuses the rows removal freed."""
+    Discovery looks every key up and dedupes the missing ones through a
+    pending buffer indexed by key hash (``pending_winners``); then
+    ``insert_pending`` claims their pool rows."""
     w0, w1 = grid.pack_block_index(block_ijk.reshape(-1, 3))
     valid = valid.reshape(-1)
-    dev = layer.device
-    mb = layer.max_blocks
-    lanes = torch.arange(w0.shape[0], dtype=torch.int64, device=dev)
+
+    def discover(table):
+        missing = valid & (vhash.lookup(table, w0, w1) < 0)
+        if not _runtime.host_bool(missing.any()):
+            return None
+        win = pending_winners(w0, w1, missing, pending_size)
+        new_mask = win >= 0
+        src = torch.where(new_mask, win, 0)
+        return (torch.where(new_mask, w0[src], 0),
+                torch.where(new_mask, w1[src], grid.EMPTY_W1), new_mask)
+
+    return insert_pending(layer, discover, pending_size)
+
+
+def pending_winners(w0, w1, missing, pending_size: int = PENDING_SIZE):
+    """int64[pending_size]: for each cell of the pending buffer (a key's
+    ``hash_words & (pending_size - 1)``) the largest lane id of the
+    missing keys hashing there, -1 where none. The buffer keeps the LAST
+    colliding lane (the JAX CPU scatter's order), made explicit with a
+    scatter-max of lane ids so w0/w1 can never mix lanes."""
+    lanes = torch.arange(w0.shape[0], dtype=torch.int64, device=w0.device)
     ph = vhash.hash_words(w0, w1) & (pending_size - 1)
     # Lanes that are not missing scatter to 4096 dump cells past the
     # buffer, not one: millions of atomics on one address serialize.
     dump = pending_size + (lanes & 4095)
-    overflowed = torch.zeros((), dtype=torch.bool, device=dev)
-    table = layer.table
+    win = torch.full((pending_size + 4096,), -1, dtype=torch.int64,
+                     device=w0.device)
+    win.scatter_reduce_(0, torch.where(missing, ph, dump), lanes, "amax")
+    return win[:pending_size]
+
+
+def insert_pending(layer: VoxelLayer, discover, pending_size: int):
+    """The allocation rounds, at most 8: ``discover(table)`` gives the
+    round's pending keys (w0, w1 int32[pending_size], ok bool), or None
+    once nothing is missing; a parallel hash insert claims pool rows for
+    them, and keys that collided in the buffer wait for the next round.
+    New blocks take rows in ``free_rows`` order: a pool that never
+    removed a block hands them out from the high-water mark up, as the
+    JAX package does, and a full pool reuses the rows removal freed.
+    Returns (layer, overflowed bool[])."""
+    mb = layer.max_blocks
+    overflowed = torch.zeros((), dtype=torch.bool, device=layer.device)
     for _ in range(8):
-        missing = valid & (vhash.lookup(table, w0, w1) < 0)
-        if not _runtime.host_bool(missing.any()):
+        pending = discover(layer.table)
+        if pending is None:
             break
-        win = torch.full((pending_size + 4096,), -1, dtype=torch.int64,
-                         device=dev)
-        win.scatter_reduce_(0, torch.where(missing, ph, dump), lanes, "amax")
-        win = win[:pending_size]
-        new_mask = win >= 0
-        src = torch.where(new_mask, win, 0)
-        pend_w0 = torch.where(new_mask, w0[src], 0)
-        pend_w1 = torch.where(new_mask, w1[src], grid.EMPTY_W1)
-        table, slots, ok = vhash.insert(table, pend_w0, pend_w1, new_mask,
-                                        base_slot=layer.num_blocks,
+        pend_w0, pend_w1, new_mask = pending
+        table, slots, ok = vhash.insert(layer.table, pend_w0, pend_w1,
+                                        new_mask, base_slot=layer.num_blocks,
                                         rows=free_rows(layer, pending_size))
         overflow_mask = ok & (slots >= mb)
         overflowed = overflowed | overflow_mask.any()

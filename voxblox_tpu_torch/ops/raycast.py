@@ -148,10 +148,16 @@ def max_steps_hint(max_ray_length: float, truncation_distance: float,
     return int(span / voxel_size * 1.8) + 4
 
 
-def bresenham_hierarchical(setup: RaySetup, vps: int, max_steps: int,
-                           valid=None):
-    """DDA at block granularity (the segment scaled by 1/vps): allocation
-    discovery with vps-fold fewer steps."""
+def block_segments(setup: RaySetup, vps: int) -> RaySetup:
+    """The segments scaled by 1/vps, in block units: the set-up of the
+    block-granular walk."""
     s = setup.start_scaled / vps
     e = setup.end_scaled / vps
-    return cast_rays(RaySetup(s, e, _l1_steps(s, e)), max_steps, valid)
+    return RaySetup(s, e, _l1_steps(s, e))
+
+
+def bresenham_hierarchical(setup: RaySetup, vps: int, max_steps: int,
+                           valid=None):
+    """DDA at block granularity (``block_segments``): allocation discovery
+    with vps-fold fewer steps."""
+    return cast_rays(block_segments(setup, vps), max_steps, valid)

@@ -20,7 +20,10 @@ On a CUDA device ``simple`` and ``merged`` walk, weigh, look up and
 scatter in one launch of a hand-written kernel (``ops/tsdf_walk``); the
 chain of [max_steps, R] sample tensors here is its plain version and runs
 on the CPU, and for ``fast``, whose early exit sits between walk and
-weigh.
+weigh. Allocation's discovery (the block walk, its dilation, the lookups
+and the pending buffer) is likewise one launch a round of another kernel
+on a CUDA device (``ops/tsdf_alloc``), for every method; its plain chain
+runs on the CPU.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from ..core import hash as vhash
 from ..core import layer as vlayer
 from ..core.config import TsdfIntegratorConfig
 from ..utils import timing
-from . import raycast, tsdf_walk
+from . import raycast, tsdf_alloc, tsdf_walk
 
 
 class FastIntegratorState(NamedTuple):
@@ -229,14 +232,57 @@ def allocate_for_rays(layer, setup: raycast.RaySetup, valid,
                       max_steps: int):
     """Block-granular DDA over the same segments, dilated by one block on
     each axis (voxel rays crossing block corners), then the two-phase
-    allocation. Returns (layer, overflowed)."""
+    allocation. Returns (layer, overflowed). On a CUDA device the walk,
+    the dilation, the lookups and the pending buffer are one launch of
+    ops/tsdf_alloc's kernel a round (``_allocate_kernel``); elsewhere the
+    chain (``_allocate_chain``)."""
     block_steps = max(4, max_steps // layer.vps + 3)
-    bvox, bmask = raycast.bresenham_hierarchical(setup, layer.vps,
-                                                 block_steps, valid)
+    blocks = raycast.block_segments(setup, layer.vps)
+    if layer.device.type == "cuda":
+        return _allocate_kernel(layer, blocks, valid, block_steps)
+    return _allocate_chain(layer, blocks, valid, block_steps)
+
+
+def _allocate_chain(layer, blocks: raycast.RaySetup, valid,
+                    block_steps: int):
+    """The plain discovery: every lane walks ``block_steps`` blocks in
+    lockstep, the [7, steps, rays] dilated candidates go to
+    ``allocate_blocks``."""
+    bvox, bmask = raycast.cast_rays(blocks, block_steps, valid)
     offs = _runtime.const(_DILATE, torch.int32, layer.device)
     cand = (bvox[None] + offs[:, None, None, :]).reshape(-1, 3)
     cmask = bmask[None].expand((offs.shape[0],) + bmask.shape).reshape(-1)
     return vlayer.allocate_blocks(layer, cand, cmask)
+
+
+def _allocate_kernel(layer, blocks: raycast.RaySetup, valid,
+                     block_steps: int,
+                     pending_size: int = vlayer.PENDING_SIZE):
+    """The chain's discovery in one launch of the kernel a round, read
+    back by one flag (the chain reads the probe bound and whether any
+    candidate is missing), and the winners' keys in one more launch when
+    it is set; the insert rounds are the chain's. While recording, the
+    kernel's counters (``tsdf_alloc.COUNTERS``, summed over the rounds)
+    and its block lookups as ``hash.lookup_lanes``."""
+    dda = raycast.dda_start(blocks)
+    counts = None
+    if timing.recording():
+        counts = torch.zeros(len(tsdf_alloc.COUNTERS), dtype=torch.int64,
+                             device=layer.device)
+
+    def discover(table):
+        found = tsdf_alloc.find_missing(table, dda, blocks.num_steps, valid,
+                                        block_steps, pending_size, counts)
+        if _runtime.host_int(found.flag) < 0:
+            return None
+        return tsdf_alloc.pending_keys(found)
+
+    layer, overflowed = vlayer.insert_pending(layer, discover, pending_size)
+    if counts is not None:
+        for name, n in zip(tsdf_alloc.COUNTERS, counts):
+            timing.count(name, n)
+        timing.count("hash.lookup_lanes", counts[1])
+    return layer, overflowed
 
 
 # ---------------------------------------------------------------------------
