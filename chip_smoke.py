@@ -58,7 +58,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
  13 raycast  TsdfServer(method=fast/merged/simple) on the orbit's flat
              640x480 clouds against the analytic scene, the walk kernel's
              launches counted over the timed scans (one a scan for simple
-             and merged, none for fast); the kernel held to the plain
+             and merged, none for fast) and the allocation kernel's (a
+             find pass a round for every method; one, and no key
+             recovery, for a scan repeated); the walk kernel held to the plain
              chain on the rays of 3 more scans of each, and timed against
              it and its byte bound there; at 160x120 the card's maps
              against the port's on the CPU
@@ -119,9 +121,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
  23 alloc    (after 2) the allocation kernel (ops/tsdf_alloc.py) against the
              plain chain at the three benchmark cells' rays
              (scripts/tsdf_alloc_kernel.py: a few warm scans of each cell,
-             then 2 scans on copies of their allocation state, the same
-             table, rows and flags from both; event-to-event ms of both
-             paths, the find pass's device time, its counters and bound)
+             then 2 scans on their allocation state: one round's
+             discovery by both paths (device time of its kernels, and
+             the find pass's), the whole allocation on copies (event to
+             event, the same table, rows and flags from both), the
+             kernel's counters and bound, the probes of both paths)
 Prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -296,6 +300,7 @@ def run_loop(srv, scans, on_window_start=None):
     if on_window_start:
         on_window_start()
     syncs0 = _runtime.SYNCS
+    finds0, keys0 = tsdf_alloc.LAUNCHES, tsdf_alloc.KEY_LAUNCHES
     t0 = time.perf_counter()
     iters = []
     for i in range(TIMED):
@@ -307,6 +312,8 @@ def run_loop(srv, scans, on_window_start=None):
     launches = esdf_relax.LAUNCHES
     srv.check_overflow()
     return dict(ms_per_scan=ms, outer_iters=iters, relax_launches=launches,
+                alloc_finds=tsdf_alloc.LAUNCHES - finds0,
+                alloc_key_launches=tsdf_alloc.KEY_LAUNCHES - keys0,
                 host_syncs_per_scan=syncs / TIMED, blocks=n_blocks)
 
 
@@ -1393,15 +1400,27 @@ def raycast_phase(scans, dev, profile=False):
             srv.insert_pointcloud(s[:2], *s[2:])
         torch.cuda.synchronize()
         tsdf_walk.LAUNCHES = 0
+        tsdf_alloc.LAUNCHES = tsdf_alloc.KEY_LAUNCHES = 0
         t0 = time.perf_counter()
         for s in flat[n_warm:n_warm + n_timed]:
             srv.insert_pointcloud(s[:2], *s[2:])
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / n_timed * 1e3
         walk_launches = tsdf_walk.LAUNCHES
+        finds, keys = tsdf_alloc.LAUNCHES, tsdf_alloc.KEY_LAUNCHES
         # One launch a scan for simple and merged; fast keeps the chain.
         assert walk_launches == (0 if method == "fast" else n_timed), (
             method, walk_launches)
+        # Every method allocates through the kernel: a find pass a round,
+        # and after each round that recovers keys one more.
+        assert finds == n_timed + keys, (method, finds, keys)
+        srv.check_overflow()
+        # The last scan again: nothing is missing, one pass, no recovery.
+        tsdf_alloc.LAUNCHES = tsdf_alloc.KEY_LAUNCHES = 0
+        s = flat[n_warm + n_timed - 1]
+        srv.insert_pointcloud(s[:2], *s[2:])
+        steady = (tsdf_alloc.LAUNCHES, tsdf_alloc.KEY_LAUNCHES)
+        assert steady == (1, 0), (method, steady)
         srv.check_overflow()
         if profile and method == "fast":
             nxt = n_warm + n_timed
@@ -1414,7 +1433,10 @@ def raycast_phase(scans, dev, profile=False):
         layer = srv.layer
         acc = analytic_errors(layer, objs, trunc)
         res[method] = dict(ms_per_scan=ms, scans_timed=n_timed,
-                           walk_launches=walk_launches,
+                           walk_launches=walk_launches, alloc_finds=finds,
+                           alloc_key_launches=keys,
+                           alloc_steady_scan=dict(zip(("finds", "keys"),
+                                                      steady)),
                            blocks=_runtime.host_int(layer.num_blocks), **acc)
         log(f"raycast {method}: {ms:.1f} ms/scan, rmse {acc['rmse']:.4f} m, "
             f"max {acc['max_err']:.3f} m over {acc['evaluated_voxels']} "
@@ -1472,7 +1494,9 @@ ALLOC_SEED = 2 ** 31 + 1717
 
 def alloc_phase():
     """The allocation kernel against the plain chain at each cell's rays
-    (``scripts/tsdf_alloc_kernel.measure``, 2 scans, 3 repetitions)."""
+    (``scripts/tsdf_alloc_kernel.measure``, 2 scans, 3 repetitions): one
+    round's discovery and the whole allocation by each path, and the
+    probes of both."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "tsdf_alloc_kernel", os.path.join("scripts", "tsdf_alloc_kernel.py"))
@@ -2955,6 +2979,9 @@ def main():
                max_memory_allocated=torch.cuda.max_memory_allocated())
     log("main path: " + json.dumps(win))
     assert launches > 0, "the online loop never launched the kernel"
+    # The projective integrator allocates its own candidate blocks with
+    # explicit keys: the allocation kernel is not on this path.
+    assert (win["alloc_finds"], win["alloc_key_launches"]) == (0, 0), win
     assert all(i >= 1 for i in win["outer_iters"])
     esdf = srv.esdf_layer.channels["esdf"]
     obs = (srv.esdf_layer.channels["esdf_flags"] & 1) != 0
@@ -3151,17 +3178,37 @@ def main():
             raycast_fast=out["raycast"]["fast"]["walk_launches"]),
         other_shapes=[dict(path="raycast simple", **{
             k: out["raycast"]["simple"]["walk_kernel"][k] for k in keys})]))
+    # A: ``launches`` are the find passes over the timed merged scans of
+    # phase 13; ``ms`` and ``plain_ms`` one round's discovery (walk,
+    # dilation, lookups, pending buffer, the winners' keys) by each path,
+    # device time of all its kernels; the bound is the find pass's.
     alloc = out["alloc"]
     first = alloc[ALLOC_CELLS[0][0]]
+    ray = out["raycast"]
+
+    def disc(a):
+        return dict(ms=a["kernel_discovery_ms_median"],
+                    plain_ms=a["chain_discovery_ms_median"],
+                    find_pass_ms=a["find_pass_ms_median"],
+                    bound_ms=a["bound_ms"],
+                    kernel_path_ms=a["kernel_path_ms_median"],
+                    chain_path_ms=a["chain_ms_median"])
+
     line["kernels"].append(dict(
         name="tsdf_alloc_kernel", route="cuda",
         source="voxblox_tpu_torch/csrc/tsdf_alloc.cu", replaces=None,
-        launches=first["rounds"], ms=first["find_pass_ms_median"],
-        plain_ms=first["chain_ms_median"], bound_ms=first["bound_ms"],
+        launches=ray["merged"]["alloc_finds"], **disc(first),
         bound_by="bytes", library_ms=None,
-        other_shapes=[dict(path=cell, ms=a["find_pass_ms_median"],
-                           plain_ms=a["chain_ms_median"],
-                           bound_ms=a["bound_ms"])
+        launches_by_path=dict(
+            raycast_merged=ray["merged"]["alloc_finds"],
+            raycast_simple=ray["simple"]["alloc_finds"],
+            raycast_fast=ray["fast"]["alloc_finds"],
+            key_recoveries={m: ray[m]["alloc_key_launches"]
+                            for m in RAYCAST_SCANS},
+            steady_scan={m: ray[m]["alloc_steady_scan"]
+                         for m in RAYCAST_SCANS},
+            main_loop_projective=out["main"]["alloc_finds"]),
+        other_shapes=[dict(path=cell, rounds=a["rounds"], **disc(a))
                       for cell, a in alloc.items()]))
     print(json.dumps(line))
     print(smi)

@@ -1,7 +1,8 @@
 """Port parity, DDA ray casting (voxblox_tpu/ops/raycast.py).
 
 The same ray segments go through the JAX ``cast_rays`` /
-``bresenham_hierarchical`` and the port's: voxels and masks exact, with
+``bresenham_hierarchical`` and the port's (``cast_rays`` of
+``block_segments`` for the block-granular walk): voxels and masks exact, with
 ties between axes, axis-aligned rays, zero-length rays, invalid rays and
 rays longer than the step budget among them. ``compute_ray_segments``
 agrees to one float32 ulp (the endpoints' multiply-adds are fused in the
@@ -62,8 +63,8 @@ def test_segments_and_dda_match(rng, carving, from_origin):
     assert bool(np.asarray(jm).any())
     jv, jm = jax.jit(jr.bresenham_hierarchical, static_argnums=(1, 2))(
         jr.RaySetup(*setup), 8, 10, valid)
-    tv, tm = tr.bresenham_hierarchical(
-        tr.RaySetup(*map(torch.as_tensor, setup)), 8, 10,
+    tv, tm = tr.cast_rays(
+        tr.block_segments(tr.RaySetup(*map(torch.as_tensor, setup)), 8), 10,
         torch.as_tensor(valid))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))

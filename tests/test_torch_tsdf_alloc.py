@@ -17,7 +17,7 @@ on rays checked by hand.
 """
 
 import ctypes
-import dataclasses
+import importlib.util
 import shutil
 import subprocess
 import tempfile
@@ -42,6 +42,14 @@ from torch_parity import cuda_device  # noqa: F401  (fixture)
 
 VOXEL = 0.1
 CPU = torch.device("cpu")
+
+# scripts/tsdf_alloc_kernel.py: the state copy, the comparison of two
+# allocations and the exact probe count, shared with the measurement.
+_spec = importlib.util.spec_from_file_location(
+    "tsdf_alloc_kernel",
+    Path(__file__).resolve().parents[1] / "scripts" / "tsdf_alloc_kernel.py")
+alloc_tool = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(alloc_tool)
 
 
 @pytest.fixture(scope="module")
@@ -101,23 +109,9 @@ def _cfg(**kw):
                                 max_ray_length_m=6.0, **kw)
 
 
-def _alloc_state(layer):
-    """A copy of what allocation writes (table, block indices and flags,
-    high-water mark); the channels are shared."""
-    table = vhash.HashTable(**{f.name: getattr(layer.table, f.name).clone()
-                               for f in dataclasses.fields(vhash.HashTable)})
-    return dataclasses.replace(layer, table=table,
-                               block_ijk=layer.block_ijk.clone(),
-                               block_flags=layer.block_flags.clone(),
-                               num_blocks=layer.num_blocks.clone())
-
-
 def _assert_same_allocation(a, b):
-    for k in ("block_ijk", "block_flags", "num_blocks"):
-        assert torch.equal(getattr(a, k), getattr(b, k)), k
-    for f in dataclasses.fields(vhash.HashTable):
-        assert torch.equal(getattr(a.table, f.name),
-                           getattr(b.table, f.name)), f.name
+    diff = alloc_tool.allocation_diff(a, b)
+    assert not diff, diff
 
 
 def _both_ways(monkeypatch):
@@ -132,8 +126,8 @@ def _both_ways(monkeypatch):
         blocks = raycast.block_segments(setup, layer.vps)
         finds, keys = tsdf_alloc.LAUNCHES, tsdf_alloc.KEY_LAUNCHES
         s0 = _runtime.SYNCS
-        a, ovf_a = tt._allocate_kernel(_alloc_state(layer), blocks, valid,
-                                       block_steps)
+        a, ovf_a = tt._allocate_kernel(alloc_tool.alloc_state(layer), blocks,
+                                       valid, block_steps)
         s1 = _runtime.SYNCS
         b, ovf_b = tt._allocate_chain(layer, blocks, valid, block_steps)
         s2 = _runtime.SYNCS
@@ -231,21 +225,6 @@ def _dilate_index(d):
     return j
 
 
-def _probes_each(table, w0, w1):
-    """Cells each lookup of ``core/hash.lookup`` reads until its key or an
-    empty cell, at most the probe bound + 1."""
-    h = vhash.hash_words(w0, w1)
-    n = torch.zeros(w0.shape, dtype=torch.int64)
-    done = torch.zeros(w0.shape, dtype=torch.bool)
-    for q in range(int(table.max_psl) + 1):
-        idx = (h + q) & (table.capacity - 1)
-        n += (~done).long()
-        k1 = table.keys_w1[idx]
-        done |= (((table.keys_w0[idx] == w0) & (k1 == w1))
-                 | (k1 == grid.EMPTY_W1))
-    return n
-
-
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_emulated_find_pass_matches_chain(emulated, case):
     layer, blocks, valid, steps, pending = _case(case)
@@ -283,7 +262,7 @@ def test_emulated_find_pass_matches_chain(emulated, case):
     flat = probed.reshape(-1)
     assert counts.tolist() == [
         int(mask.sum()), int(probed.sum()), int(missing.sum()),
-        int(_probes_each(table, w0[flat], w1[flat]).sum())]
+        int(alloc_tool.probes_each(table, w0[flat], w1[flat]).sum())]
 
     # Each case exercises what it is named for.
     n_steps = blocks.num_steps
@@ -540,11 +519,11 @@ def test_cuda_counters_on_hand_checked_rays(cuda_device):
         "keys_w0", "keys_w1", "slot", "max_psl", "count")))
     w0, w1 = grid.pack_block_index(cand)
     assert bool((vhash.lookup(cpu_table, w0, w1) >= 0).all())
-    alloc_probes = int(_probes_each(cpu_table, w0, w1).sum())
+    alloc_probes = int(alloc_tool.probes_each(cpu_table, w0, w1).sum())
     # The walk kernel adds its own 7 block lookups and their probes.
     walk_blocks = torch.tensor([[0, 0, z] for z in (0, 1, 2, 0, 1, 0, 1)],
                                dtype=torch.int32)
     v0, v1 = grid.pack_block_index(walk_blocks)
     assert c["hash.lookup_lanes"] == 41 + 7
     assert c["hash.probes"] == alloc_probes + int(
-        _probes_each(cpu_table, v0, v1).sum())
+        alloc_tool.probes_each(cpu_table, v0, v1).sum())

@@ -154,10 +154,3 @@ def block_segments(setup: RaySetup, vps: int) -> RaySetup:
     s = setup.start_scaled / vps
     e = setup.end_scaled / vps
     return RaySetup(s, e, _l1_steps(s, e))
-
-
-def bresenham_hierarchical(setup: RaySetup, vps: int, max_steps: int,
-                           valid=None):
-    """DDA at block granularity (``block_segments``): allocation discovery
-    with vps-fold fewer steps."""
-    return cast_rays(block_segments(setup, vps), max_steps, valid)
